@@ -1,0 +1,328 @@
+"""Obstruction-free GetPath via double collect (the paper's §3.5), in
+PyTorch: the port of ``repro.core.snapshot``.
+
+A collect is one BFS TreeCollect plus a snapshot of the validation vector
+(ecnt, vver) over the rows the traversal depended on. Two consecutive
+collects match iff their dependency sets, parent trees, found flags and
+masked version vectors are equal; matching collects prove the traversal
+saw a graph state that existed unchanged across the second collect, so
+the answer linearizes inside it. The §3.5 adversary (add an edge, remove
+it between collects) bumps a source-row ecnt in the dependency set, so it
+is always caught.
+
+Surfaces:
+  * ``collect`` / ``compare_collects`` / ``get_path``: pure building blocks
+  * ``get_path_session``: the protocol against a live state reference
+  * ``collect_batch`` / ``get_paths_session``: Q queries under ONE shared
+    double collect, traversed by the fused ``multi_bfs``
+  * ``interleaved_getpath``: mutation batches interleaved with a pending
+    query, one collect per round (a host loop where JAX uses ``lax.scan``)
+
+Paths are walked on the host: a session copies ``parent`` and ``found`` to
+the host once, not one sync per path step.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import ops as gops
+from repro_torch.core.bfs import bfs, extract_path, multi_bfs
+from repro_torch.core.graph import (GraphState, OpBatch, find_slot,
+                                    find_slots, version_vector)
+from repro_torch.obs import trace as _trace
+
+
+class Collect(NamedTuple):
+    found: torch.Tensor     # bool
+    parent: torch.Tensor    # int32[V]
+    touched: torch.Tensor   # bool[V]  dependency set (expanded + {src, dst})
+    versions: torch.Tensor  # int32[V, 2]  (ecnt, vver) masked to touched
+    src_slot: torch.Tensor  # int32
+    dst_slot: torch.Tensor  # int32
+    present: torch.Tensor   # bool  both endpoints alive at collect start
+
+
+class PathResult(NamedTuple):
+    found: torch.Tensor   # bool: a path existed (linearizably)
+    length: torch.Tensor  # int32: vertices on the path (0 if none)
+    keys: torch.Tensor    # int32[V]: keys along the path, -1 padded
+    rounds: torch.Tensor  # int32: collects performed
+    starved: torch.Tensor  # bool: the double collect never matched within
+    # the retry budget; with on_conflict="epoch" the answer was resolved
+    # against one pinned epoch
+
+
+def _require_dense(state) -> None:
+    if not isinstance(state, GraphState):
+        raise TypeError(
+            f"collect_batch takes a GraphState, got {type(state).__name__}: "
+            "sharded states wait for ROADMAP.md queue A10")
+
+
+def _touch(touched, slots):
+    """touched[q, s] |= s >= 0 for each query's slot."""
+    q = slots.shape[0]
+    qi = torch.arange(q, device=slots.device)
+    s = slots.clamp(min=0)
+    touched[qi, s] = touched[qi, s] | (slots >= 0)
+
+
+def _finish(state: GraphState, found, parent, expanded, sk, sl) -> Collect:
+    """Dependency-set and version bookkeeping after a [Q]-batched
+    traversal."""
+    present = (sk >= 0) & (sl >= 0)
+    touched = expanded.clone()
+    _touch(touched, sk)
+    _touch(touched, sl)
+    vv = torch.where(touched[:, :, None], version_vector(state)[None], 0)
+    return Collect(found & present, parent, touched, vv, sk, sl, present)
+
+
+def collect(state: GraphState, k, l, backend: str | None = None) -> Collect:
+    """One TreeCollect: locate endpoints, BFS (the push is B3 on the
+    kernel backends), snapshot versions."""
+    sk = find_slot(state, int(k)).reshape(1)
+    sl = find_slot(state, int(l)).reshape(1)
+    r = bfs(state, sk, sl, backend=backend)
+    c = _finish(state, r.found[None], r.parent[None], r.expanded[None], sk,
+                sl)
+    return Collect(*(x[0] for x in c))
+
+
+def compare_collects(a: Collect, b: Collect) -> torch.Tensor:
+    """The paper's CompareTree + ComparePath, subsumed by version equality.
+    Works on single collects and on batches alike (all queries must
+    match)."""
+    same_tree = torch.equal(torch.where(a.touched, a.parent, -1),
+                            torch.where(b.touched, b.parent, -1))
+    same = (same_tree and torch.equal(a.touched, b.touched)
+            and torch.equal(a.versions, b.versions)
+            and torch.equal(a.found, b.found)
+            and torch.equal(a.present, b.present)
+            and torch.equal(a.src_slot, b.src_slot)
+            and torch.equal(a.dst_slot, b.dst_slot))
+    return torch.tensor(same)
+
+
+compare_collect_batches = compare_collects
+
+
+def _path(parent_np, found: bool, src: int, dst: int, vkey_np):
+    """(length, keys int32[V] numpy) of one materialized path."""
+    v = parent_np.shape[0]
+    if not found:
+        return 0, np.full((v,), -1, np.int32)
+    n, slots = extract_path(parent_np, src, dst)
+    keys = np.where(slots >= 0, vkey_np[np.clip(slots, 0, v - 1)], -1)
+    return n, keys.astype(np.int32)
+
+
+def _materialize(state: GraphState, c: Collect, rounds,
+                 starved=False) -> PathResult:
+    dev = state.device
+    found = bool(c.found)
+    n, keys = _path(c.parent.cpu().numpy(), found, int(c.src_slot),
+                    int(c.dst_slot), state.vkey.cpu().numpy())
+    return PathResult(
+        torch.tensor(found, device=dev),
+        torch.tensor(n, dtype=torch.int32, device=dev),
+        torch.from_numpy(keys).to(dev),
+        torch.tensor(int(rounds), dtype=torch.int32, device=dev),
+        torch.tensor(bool(starved), device=dev))
+
+
+def get_path(state: GraphState, k, l,
+             backend: str | None = None) -> PathResult:
+    """GetPath against a static state: a single collect is trivially a
+    valid double collect."""
+    return _materialize(state, collect(state, k, l, backend=backend), 1)
+
+
+# ----------------------------------------------------------------------------
+# Batched multi-query GetPath under ONE shared double collect
+# ----------------------------------------------------------------------------
+def collect_batch(state, ks, ls, backend: str | None = None,
+                  engine: str = "fused") -> Collect:
+    """TreeCollect for Q query pairs; the Collect's leading axis is the
+    query. One version comparison validates all of them against the same
+    pair of states, so every answer linearizes at the same point.
+
+    ``engine="fused"``: one ``multi_bfs`` advancing all Q frontiers per
+    superstep (the production path; the push is B1 on the kernel
+    backends). ``engine="vmap"``: Q single collects, stacked (the
+    cross-check reference)."""
+    _require_dense(state)
+    dev = state.device
+    ks = torch.as_tensor(np.asarray(ks, np.int32), device=dev)
+    ls = torch.as_tensor(np.asarray(ls, np.int32), device=dev)
+    if engine == "vmap":
+        cs = [collect(state, int(k), int(l), backend=backend)
+              for k, l in zip(ks.tolist(), ls.tolist())]
+        return Collect(*(torch.stack(f) for f in zip(*cs)))
+    if engine != "fused":
+        raise ValueError(f"unknown collect_batch engine {engine!r}")
+    sk = find_slots(state, ks)
+    sl = find_slots(state, ls)
+    r = multi_bfs(state, sk, sl, backend=backend)
+    return _finish(state, r.found, r.parent, r.expanded, sk, sl)
+
+
+def _materialize_batch(state, cur: Collect, pairs):
+    """(found, keys) per pair, from ONE host copy of the batch."""
+    parent = cur.parent.cpu().numpy()
+    found = cur.found.cpu().numpy()
+    src = cur.src_slot.cpu().numpy()
+    dst = cur.dst_slot.cpu().numpy()
+    vkey = state.vkey.cpu().numpy()
+    out = []
+    for qi in range(len(pairs)):
+        n, keys = _path(parent[qi], bool(found[qi]), int(src[qi]),
+                        int(dst[qi]), vkey)
+        out.append((bool(found[qi]), [int(x) for x in keys[:n]]))
+    return out
+
+
+def _session_stats(stats, *, rounds, starved, resolved, epoch):
+    if stats is not None:
+        stats.update(rounds=rounds, starved=starved, resolved=resolved,
+                     epoch=epoch)
+
+
+def get_paths_session(fetch_state, pairs, *, max_rounds: int | None = 16,
+                      backend: str | None = None, engine: str = "fused",
+                      on_conflict: str = "retry", fetch_epoch=None,
+                      stats: dict | None = None):
+    """Multi-query GetPath: the double-collect loop runs once for the whole
+    batch. Returns ([(found, keys)] per pair, rounds).
+
+    ``max_rounds`` bounds the retry loop (None: the paper's unbounded
+    loop). At the budget, ``on_conflict="retry"`` gives up (every pair
+    (False, [])); ``"epoch"`` resolves wait-free with one collect over
+    ``fetch_epoch()``'s pinned ``(epoch, state)`` (``fetch_state()`` when
+    None). ``stats`` receives {"rounds", "starved", "resolved", "epoch"}.
+    """
+    if on_conflict not in ("retry", "epoch"):
+        raise ValueError(f"unknown on_conflict mode {on_conflict!r}")
+    ks = [p[0] for p in pairs]
+    ls = [p[1] for p in pairs]
+
+    def one(state):
+        return _trace.fence(collect_batch(state, ks, ls, backend=backend,
+                                          engine=engine))
+
+    with _trace.span("session.get_paths", pairs=len(pairs),
+                     on_conflict=on_conflict) as sp:
+        state = fetch_state()
+        with _trace.span("collect.round", round=1):
+            prev = one(state)
+        rounds = 1
+        while True:
+            state = fetch_state()
+            with _trace.span("collect.round", round=rounds + 1):
+                cur = one(state)
+            rounds += 1
+            # a capacity grow between collects is an effective mutation
+            if (prev.versions.shape == cur.versions.shape
+                    and bool(compare_collect_batches(prev, cur))):
+                _session_stats(stats, rounds=rounds, starved=False,
+                               resolved="match", epoch=None)
+                sp.set(rounds=rounds, resolved="match")
+                return _materialize_batch(state, cur, pairs), rounds
+            prev = cur
+            if max_rounds is not None and rounds >= max_rounds:
+                if on_conflict == "epoch":
+                    epoch, state = (fetch_epoch() if fetch_epoch is not None
+                                    else (None, fetch_state()))
+                    with _trace.span("collect.round", round=rounds + 1,
+                                     pinned=True):
+                        cur = one(state)
+                    rounds += 1
+                    _session_stats(stats, rounds=rounds, starved=True,
+                                   resolved="epoch", epoch=epoch)
+                    sp.set(rounds=rounds, resolved="epoch")
+                    return _materialize_batch(state, cur, pairs), rounds
+                _session_stats(stats, rounds=rounds, starved=True,
+                               resolved="budget", epoch=None)
+                sp.set(rounds=rounds, resolved="budget")
+                return [(False, []) for _ in pairs], rounds
+
+
+def get_path_session(
+    fetch_state: Callable[[], GraphState],
+    k: int,
+    l: int,
+    max_rounds: int | None = 16,
+    backend: str | None = None,
+    *,
+    on_conflict: str = "retry",
+    fetch_epoch=None,
+) -> PathResult:
+    """The paper's GetPath/Scan against a live state reference:
+    ``fetch_state()`` returns the mutator's latest published state.
+    Terminates at the first pair of consecutive collects with no effective
+    mutation between them; at the ``max_rounds`` budget, "retry" returns
+    found=False with ``starved``, "epoch" answers from one pinned
+    ``fetch_epoch()`` state with ``starved``."""
+    if on_conflict not in ("retry", "epoch"):
+        raise ValueError(f"unknown on_conflict mode {on_conflict!r}")
+    state = fetch_state()
+    prev = collect(state, k, l, backend=backend)
+    rounds = 1
+    while True:
+        state = fetch_state()
+        cur = collect(state, k, l, backend=backend)
+        rounds += 1
+        if (prev.versions.shape == cur.versions.shape
+                and bool(compare_collects(prev, cur))):
+            return _materialize(state, cur, rounds)
+        prev = cur
+        if max_rounds is not None and rounds >= max_rounds:
+            if on_conflict == "epoch":
+                state = (fetch_epoch()[1] if fetch_epoch is not None
+                         else fetch_state())
+                cur = collect(state, k, l, backend=backend)
+                return _materialize(state, cur, rounds + 1, starved=True)
+            dev = state.device
+            return PathResult(
+                torch.tensor(False, device=dev),
+                torch.tensor(0, dtype=torch.int32, device=dev),
+                torch.full((state.capacity,), -1, dtype=torch.int32,
+                           device=dev),
+                torch.tensor(rounds, dtype=torch.int32, device=dev),
+                torch.tensor(True, device=dev))
+
+
+# ----------------------------------------------------------------------------
+# Interleaving mutation batches with a pending query
+# ----------------------------------------------------------------------------
+def interleaved_getpath(state: GraphState, batches: OpBatch, k, l,
+                        backend: str | None = None, engine: str = "fast"):
+    """Run T rounds of (apply mutation batch t, advance the query by one
+    collect); the query completes at the first collect that matches the
+    previous round's. ``batches`` has a leading T axis. Returns
+    (final state, PathResult, per-round result codes int32[T, B]). Never
+    matching reports found=False, rounds=-1 and starved."""
+    apply = gops.apply_ops_fast if engine == "fast" else gops.apply_ops
+    prev = collect(state, k, l, backend=backend)
+    ans, done_round, results = prev, -1, []
+    for t in range(batches.opcode.shape[0]):
+        state, res = apply(state, OpBatch(*(x[t] for x in batches)))
+        results.append(res)
+        if done_round >= 0:
+            continue  # answered: the remaining rounds only mutate
+        cur = collect(state, k, l, backend=backend)
+        if bool(compare_collects(prev, cur)):
+            ans, done_round = cur, t + 1
+        prev = cur
+    done = done_round >= 0
+    if not done:
+        ans = prev
+    pr = _materialize(state, ans, done_round + 1 if done else -1)
+    pr = PathResult(pr.found & done,
+                    pr.length if done else torch.zeros_like(pr.length),
+                    pr.keys, pr.rounds, torch.tensor(not done,
+                                                     device=state.device))
+    return state, pr, torch.stack(results)

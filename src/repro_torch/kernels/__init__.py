@@ -1,0 +1,10 @@
+"""Hand-written CUDA kernels of the port, one package per TPU kernel:
+
+  bfs_multi_step  B1, the packed Q-frontier push superstep
+  bfs_pull_step   B2, the bottom-up pull superstep
+  bfs_step        B3, the packed single-frontier push superstep
+
+Each package holds ``kernel.cu`` (the kernel, built by ``_build``),
+``ref.py`` (its plain PyTorch version) and ``ops.py`` (the wrappers: a CUDA
+tensor launches the kernel, a CPU tensor takes the plain version).
+"""

@@ -1,0 +1,13 @@
+// B1: one packed top-down BFS superstep for Q frontiers, on sm_90a.
+// Replaces repro/kernels/bfs_multi_step/kernel.py::multi_bfs_step_packed_pallas;
+// the kernels and their design notes are in push.cuh.
+#include "push.cuh"
+
+extern "C" int multi_bfs_step_packed_launch(
+    const void* frontier, const void* adj, const void* alive,
+    const void* visited, void* new_out, void* parent, void* reach, void* fw,
+    int q_n, int r_n, int w_n, int v_n, void* stream) {
+  return static_cast<int>(push::launch(frontier, adj, alive, visited, new_out,
+                                       parent, reach, fw, q_n, r_n, w_n, v_n,
+                                       static_cast<cudaStream_t>(stream)));
+}

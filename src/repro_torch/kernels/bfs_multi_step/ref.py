@@ -1,0 +1,47 @@
+"""Plain PyTorch version of the B1 push superstep (the kernel's contract).
+
+frontiers bool[Q, R], adj_packed int32[R, W] (R == V or a row slice),
+alive bool[V], visited bool[Q, V] with V <= 32 * W
+-> (new bool[Q, V], parent int32[Q, V], reach_words int32[Q, W]):
+
+  reach_words[q] = OR of the RAW words of q's frontier rows (no liveness
+                   mask: the sharded exchange carries physical reach)
+  new[q, c]      = bit c of reach_words[q] & alive[c] & ~visited[q, c]
+  parent[q, c]   = smallest frontier row of q (relative to the slice) with
+                   bit c set, where new; -1 elsewhere
+
+Only frontier rows are read, in ascending chunks sized so the transient
+stays under ``budget`` bytes, so the function also runs at full size.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.graph import (INT32_MAX, WORD_BITS, or_reduce,
+                                    unpack_bits)
+
+_BUDGET = 256 * 1024 * 1024
+
+
+def multi_bfs_step_packed_ref(frontiers, adj_packed, alive, visited,
+                              budget: int = _BUDGET):
+    q = frontiers.shape[0]
+    w = adj_packed.shape[1]
+    v = alive.shape[0]
+    dev = adj_packed.device
+    reach = torch.zeros((q, w), dtype=torch.int32, device=dev)
+    parent = torch.full((q, v), INT32_MAX, dtype=torch.int32, device=dev)
+    rows = torch.nonzero(frontiers.any(0)).flatten()   # ascending
+    chunk = max(1, budget // (2 * q * w * WORD_BITS))
+    for i in range(0, rows.numel(), chunk):
+        rc = rows[i:i + chunk]
+        a = adj_packed[rc]                              # [c, W]
+        f = frontiers[:, rc]                            # [Q, c]
+        sel = torch.where(f[:, :, None], a[None], 0)
+        reach |= or_reduce(sel, 1)
+        m = f[:, :, None] & unpack_bits(a, v)[None]     # [Q, c, V]
+        first = rc[m.to(torch.int8).argmax(1)]          # first = smallest row
+        cand = torch.where(m.any(1), first.to(torch.int32), INT32_MAX)
+        parent = torch.minimum(parent, cand)
+    new = unpack_bits(reach, v) & alive[None, :] & ~visited
+    return new, torch.where(new, parent, -1), reach

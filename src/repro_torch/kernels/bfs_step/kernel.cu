@@ -1,0 +1,15 @@
+// B3: one packed top-down BFS superstep for a single frontier, on sm_90a.
+// Replaces repro/kernels/bfs_step/kernel.py::bfs_step_packed_pallas. It is
+// the Q = 1 instance of the B1 push (../bfs_multi_step/push.cuh): with one
+// query the row split spreads the frontier rows over the card's SMs.
+#include "../bfs_multi_step/push.cuh"
+
+extern "C" int bfs_step_packed_launch(const void* frontier, const void* adj,
+                                      const void* alive, const void* visited,
+                                      void* new_out, void* parent, void* reach,
+                                      void* fw, int v_n, int w_n,
+                                      void* stream) {
+  return static_cast<int>(push::launch(frontier, adj, alive, visited, new_out,
+                                       parent, reach, fw, 1, v_n, w_n, v_n,
+                                       static_cast<cudaStream_t>(stream)));
+}

@@ -1,0 +1,55 @@
+"""Wrappers of the B3 push kernel (bfs_step/kernel.cu).
+
+``bfs_step_packed_kernel`` keeps the kernel's contract (``ref.py``): on a
+CUDA tensor it launches the kernel, on a CPU tensor it runs the plain
+version, on anything else it raises. ``launches`` counts kernel launches.
+``bfs_step_packed`` is the bool-interface drop-in for
+``core.bfs.bfs_step_packed_jnp``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.bfs_step.ref import bfs_step_packed_ref
+
+launches = 0
+
+
+def _launch(frontier, adj_packed, alive, visited):
+    global launches
+    v, w = adj_packed.shape
+    dev = adj_packed.device
+    if v > 32 * w:
+        raise ValueError(f"{v} rows need {-(-v // 32)} words, got {w}")
+    for t, name, dt, shape in ((frontier, "frontier", torch.bool, (v,)),
+                               (adj_packed, "adj_packed", torch.int32, (v, w)),
+                               (alive, "alive", torch.bool, (v,)),
+                               (visited, "visited", torch.bool, (v,))):
+        _build.check_tensor(t, name, dt, shape, dev)
+    new = torch.empty((v,), dtype=torch.bool, device=dev)
+    parent = torch.empty((v,), dtype=torch.int32, device=dev)
+    reach = torch.empty((w,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((-(-v // 32),), dtype=torch.int32, device=dev)
+    _build.launch("bfs_step", "bfs_step_packed_launch", dev, frontier,
+                  adj_packed, alive, visited, new, parent, reach, scratch,
+                  v, w)
+    launches += 1
+    return new, parent, reach
+
+
+def bfs_step_packed_kernel(frontier, adj_packed, alive, visited):
+    """B3: (new bool[V], parent int32[V], reach_words int32[W] raw)."""
+    if adj_packed.is_cuda:
+        return _launch(frontier, adj_packed, alive, visited)
+    if adj_packed.device.type == "cpu":
+        return bfs_step_packed_ref(frontier, adj_packed, alive, visited)
+    raise ValueError(f"no B3 kernel for device {adj_packed.device}")
+
+
+def bfs_step_packed(frontier, adj_packed, alive, visited):
+    """Drop-in for ``core.bfs.bfs_step_packed_jnp``: frontier/alive/visited
+    bool[V], adj_packed int32[V, W] -> (new bool[V], parent int32[V])."""
+    new, parent, _ = bfs_step_packed_kernel(frontier, adj_packed, alive,
+                                            visited)
+    return new, parent

@@ -1,0 +1,64 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+nothing of JAX and nothing of the JAX package ``repro``, and the entry
+points place state on the card unless the caller names another device."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch.core as T
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add((node.module or "").split(".")[0])
+    return roots
+
+
+def test_no_source_file_imports_jax_or_the_jax_package():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    for f in files:
+        bad = _imported_roots(f) & set(FORBIDDEN)
+        assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_importing_the_port_loads_no_jax_module():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.core, repro_torch.convert\n"
+        "import repro_torch.kernels.bfs_multi_step.ops\n"
+        "import repro_torch.kernels.bfs_pull_step.ops\n"
+        "import repro_torch.kernels.bfs_step.ops\n"
+        "import repro_torch.kernels._build\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(','.join(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        assert T.make_graph(64).vkey.is_cuda
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.make_graph(64)
+    with pytest.raises(RuntimeError):
+        T.make_op_batch([(T.OP_ADD_V, 1)])
+    assert T.make_graph(64, device="cpu").vkey.device.type == "cpu"
