@@ -8,9 +8,18 @@ Phases (each prints lines; the last line is the JSON result):
   2. kernels: B1 (multi push), B2 (pull) and B3 (single push) against their
      plain PyTorch versions on the card, bit for bit (tolerance 0: every
      output is an integer or a bool), over densities 0 / 0.01 / 0.3, V in
-     {2000, 2048}, Q in {1, 5, 16, 70}, an edge in column 31 and row slices;
+     {2000, 2048}, Q in {1, 5, 16, 70} (and 1,024, the index closures' Q,
+     at V = 2048), an edge in column 31 and row slices; B4 (packed label
+     join) and B8 (dense label join) against theirs and against each other
+     over Q in {1, 5, 64, 1000}, L in {31, 32, 1024, 1030}, densities
+     0 / 0.01 / 0.3, a common landmark in column 31 and all-zero OUT rows;
      then multi_bfs / bfs on "hybrid_cuda" against "hybrid" at V = 4096,
      Q = 8 on a Graph500 graph, every result field
+  2b. closure routing: closure-mode multi_bfs (Q = 256) and build_index
+     (256 landmarks) on "hybrid_cuda" against "hybrid" on a Graph500
+     SCALE-12 graph, every field; a complete index (every alive vertex a
+     landmark) of a SCALE-10 graph answers 1,024 pairs and their sources'
+     reachable counts exactly as scipy's BFS does
   3. main path at full size: a Graph500 SCALE-16 graph (65,536 vertices,
      1,048,576 generated edges, A/B/C/D = 0.57/0.19/0.19/0.05) in a state of
      capacity 69,632; 8 rounds of one ``apply_ops_fast`` batch
@@ -22,11 +31,26 @@ Phases (each prints lines; the last line is the JSON result):
      edges of the state it was validated on, and every path is a chain of
      live edges; each kernel was launched on the main path
   5. the device's busy and idle share over one batch, one session and one
-     single session (torch.profiler; Chrome traces in
+     single session, and after phase 7 over one index build and one fresh
+     index-served session (torch.profiler; Chrome traces in
      build/chip_smoke_traces/)
   6. per-kernel times at full size (CUDA events, L2 flushed between
-     launches) on inputs captured from one more Q = 64 traversal, beside
-     the plain versions' times and the bytes/operations bound
+     launches, and the kernels' own device time from a profiler trace) on
+     inputs captured from one more Q = 64 traversal (B1-B3) and one Q = 64
+     probe of the phase-7 index (B4); B8 on the same probe's labels
+     unpacked to 0/1 rows. Beside them the plain versions' times and the
+     bytes/operations bound
+  7. the reachability index at full size on the phase-3 state:
+     ``build_index`` with 1,024 landmarks, then 4 rounds of a fresh
+     ``reach_session`` (Q = 64), an equal-mix batch, a ``reach_session``
+     on the stale index (must fall back) and a ``refresh``; then one AddE
+     whose affected set is small, so that the refresh is incremental.
+     Every answer equals scipy's BFS on the state it was answered on;
+     every refreshed index equals a full rebuild over its landmarks. The
+     counts are read around the build and refreshes alone (B1 and B2 must
+     have run there) and around the sessions alone (B4 must have run
+     there), never around the verification rebuilds. No path serves
+     through B8, as in the JAX package: its launches there are 0
 
 It imports nothing of JAX and nothing of the JAX package. It exits non-zero
 without a result when no CUDA device is present or the port is missing.
@@ -53,8 +77,14 @@ CAPACITY = 69_632            # 2**16 keys + 4,096 free slots for re-adds
 LANES = 1024
 QUERIES = 64
 ROUNDS = 8
+INDEX_LANDMARKS = 1024
+INDEX_ROUNDS = 4
+CLOSURE_SCALE, CLOSURE_CAPACITY, CLOSURE_Q = 12, 4160, 256
+COMPLETE_SCALE, COMPLETE_CAPACITY, COMPLETE_PAIRS = 10, 1088, 1024
+BFS_KERNELS = ("B1", "B2", "B3")
 MIX = (12.5, 12.5, 25, 12.5, 12.5, 25)   # AddV RemV HasV AddE RemE HasE
 DEVICE = "cuda"
+TRACE_DIR = ROOT / "build" / "chip_smoke_traces"
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 ALU_OPS_PER_S = 67e12        # float32 outside the tensor cores (32-bit ALU)
 
@@ -176,6 +206,31 @@ class Timer:
     def ms(self, fn, reps):
         return max(0.0, self._raw(fn, reps) - self.flush_ms)
 
+    def device_ms(self, fn, reps):
+        """Per-call device time of the port's own kernels that ``fn``
+        launches, from a torch.profiler trace (PyTorch's kernels, memsets
+        and copies, the flush among them, left out); None when the trace
+        holds no device events. Unlike ``ms`` it leaves out the time the
+        card waits for the host to enqueue the next launch."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        self.torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                self.flush_buf.zero_()
+                fn()
+            self.torch.cuda.synchronize()
+        TRACE_DIR.mkdir(parents=True, exist_ok=True)
+        path = TRACE_DIR / "kernel_time.json"
+        prof.export_chrome_trace(str(path))
+        _, per_name = _busy_ms(path)
+        if not per_name:
+            return None
+        return sum(v for k, v in per_name.items()
+                   if not k.startswith(("at::", "Memset", "Memcpy"))) / reps
+
 
 # ----------------------------------------------------------------------------
 # Phases
@@ -202,21 +257,47 @@ def phase_device(torch):
     return card
 
 
-def _kernel_mods():
+def _counters():
+    """kernel -> (its wrappers' module, the name of its launch count)."""
     from repro_torch.kernels.bfs_multi_step import ops as b1
     from repro_torch.kernels.bfs_pull_step import ops as b2
     from repro_torch.kernels.bfs_step import ops as b3
+    from repro_torch.kernels.label_join import ops as lj
 
-    return {"B1": b1, "B2": b2, "B3": b3}
+    return {"B1": (b1, "launches"), "B2": (b2, "launches"),
+            "B3": (b3, "launches"), "B4": (lj, "packed_launches"),
+            "B8": (lj, "dense_launches")}
 
 
 def reset_counts():
-    for m in _kernel_mods().values():
-        m.launches = 0
+    for m, attr in _counters().values():
+        setattr(m, attr, 0)
 
 
 def counts():
-    return {k: m.launches for k, m in _kernel_mods().items()}
+    return {k: getattr(m, attr) for k, (m, attr) in _counters().items()}
+
+
+def counted(total, fn):
+    """``fn()`` with every count set to 0 just before it; the launches it
+    made are added to ``total`` just after."""
+    reset_counts()
+    out = fn()
+    for k, v in counts().items():
+        total[k] += v
+    return out
+
+
+def require_launched(n, keys, where):
+    missing = [k for k in keys if n[k] == 0]
+    if missing:
+        raise AssertionError(f"{missing} never ran {where}: {n}")
+
+
+def same(got, want, what):
+    for x, y in zip(got, want, strict=True):
+        if not x.equal(y):
+            raise AssertionError(f"kernel != plain: {what}")
 
 
 def phase_kernels(torch, rng):
@@ -233,12 +314,6 @@ def phase_kernels(torch, rng):
 
     dev = DEVICE
     cases = 0
-
-    def same(a, b, what):
-        for x, y in zip(a, b):
-            if not torch.equal(x, y):
-                raise AssertionError(f"kernel != plain: {what}")
-
     for v in (2000, 2048):
         for dens in (0.0, 0.01, 0.3):
             adj_np = random_words(rng, v, dens)
@@ -270,12 +345,70 @@ def phase_kernels(torch, rng):
                 same(bfs_pull_step_rows(*ps), bfs_pull_step_ref(*ps),
                      f"B2 slice v={v}")
                 sa = (fr[0], adj, alive, vis[0])
-                same(bfs_step_packed_kernel(*sa), bfs_step_packed_ref(*sa),
-                     f"B3 v={v}")
+                same(bfs_step_packed_kernel(*sa),
+                     bfs_step_packed_ref(*sa), f"B3 v={v}")
                 cases += 1
     sync(torch)
     log(f"kernels vs plain: {cases} cases x (B1, B1 slice, B2, B2 slice, "
         f"B3) bit-identical (tolerance 0)")
+
+
+def phase_index_kernels(torch, rng):
+    """The kernels at the index's shapes against their plain versions, bit
+    for bit: B1 and B2 at the closures' Q = 1024; B4 and B8, and B4 == B8
+    on the same labels packed and unpacked."""
+    from repro_torch.core.graph import pack_bits
+    from repro_torch.kernels.bfs_multi_step.ops import (
+        multi_bfs_step_packed_kernel)
+    from repro_torch.kernels.bfs_multi_step.ref import (
+        multi_bfs_step_packed_ref)
+    from repro_torch.kernels.bfs_pull_step.ops import bfs_pull_step_rows
+    from repro_torch.kernels.bfs_pull_step.ref import bfs_pull_step_ref
+    from repro_torch.kernels.label_join.ops import (label_join,
+                                                    label_join_packed)
+    from repro_torch.kernels.label_join.ref import (label_join_packed_ref,
+                                                    label_join_ref)
+
+    v, bq = 2048, 1024
+    adj_np = random_words(rng, v, 0.01)
+    adj = torch.from_numpy(adj_np.view(np.int32)).to(DEVICE)
+    bits = torch.from_numpy(np.unpackbits(
+        adj_np.view(np.uint8), axis=1, bitorder="little")[:, :v]
+        .astype(np.bool_)).to(DEVICE)
+    alive = torch.from_numpy(rng.random(v) < 0.9).to(DEVICE)
+    fr = torch.from_numpy(rng.random((bq, v)) < 0.05).to(DEVICE)
+    fr[-1] = False
+    vis = torch.from_numpy(rng.random((bq, v)) < 0.3).to(DEVICE)
+    args = (fr, adj, alive, vis)
+    same(multi_bfs_step_packed_kernel(*args),
+         multi_bfs_step_packed_ref(*args), f"B1 v={v} q={bq}")
+    pa = (pack_bits(fr & alive[None, :]), pack_bits(bits.T.contiguous()),
+          alive, vis)
+    same(bfs_pull_step_rows(*pa), bfs_pull_step_ref(*pa),
+         f"B2 v={v} q={bq}")
+
+    cases = 0
+    for q in (1, 5, 64, 1000):
+        for l in (31, 32, 1024, 1030):
+            for dens in (0.0, 0.01, 0.3):
+                a = torch.from_numpy(rng.random((q, l)) < dens).to(DEVICE)
+                b = torch.from_numpy(rng.random((q, l)) < dens).to(DEVICE)
+                if l > 31:
+                    a[0, 31] = b[0, 31] = True  # the word's sign bit
+                if q > 1:
+                    a[-1] = False               # an all-zero OUT row
+                ai, bi = a.to(torch.int32), b.to(torch.int32)
+                pa, pb = pack_bits(a), pack_bits(b)
+                dense = label_join(ai, bi)
+                packed = label_join_packed(pa, pb)
+                same(dense, label_join_ref(ai, bi), f"B8 q={q} l={l}")
+                same(packed, label_join_packed_ref(pa, pb),
+                     f"B4 q={q} l={l}")
+                same(packed, dense, f"B4 != B8 q={q} l={l}")
+                cases += 1
+    sync(torch)
+    log(f"index kernels vs plain: B1 and B2 at Q={bq} V={v}; {cases} cases "
+        f"x (B4, B8, B4 == B8); bit-identical (tolerance 0)")
 
 
 def phase_hybrid(torch, rng):
@@ -301,8 +434,7 @@ def phase_hybrid(torch, rng):
             if not torch.equal(p, q):
                 raise AssertionError(f"bfs hybrid_cuda != hybrid: {f}")
     n = counts()
-    if min(n.values()) == 0:
-        raise AssertionError(f"a kernel did not run in the hybrid check: {n}")
+    require_launched(n, BFS_KERNELS, "in the hybrid check")
     log(f"hybrid_cuda == hybrid at V=4096 Q=8 (supersteps "
         f"{int(a.supersteps)}, steps {a.steps.tolist()})")
     log(f"kernels: B1 multi_bfs_step_packed {n['B1']} launches, B2 "
@@ -310,10 +442,83 @@ def phase_hybrid(torch, rng):
         f"(hybrid_cuda check)")
 
 
-def check_answers(state, pairs, answers, tag):
-    """Each answer against scipy's BFS on the live edges of ``state``."""
+def same_index(a, b, what):
+    """Two ReachIndexes agree on every array and on ``complete``."""
+    for f in ("landmarks", "out_label", "in_label", "fwd", "bwd", "alive",
+              "versions"):
+        if not getattr(a, f).equal(getattr(b, f)):
+            raise AssertionError(f"{what}: {f} differs")
+    if a.complete != b.complete:
+        raise AssertionError(f"{what}: complete differs")
+
+
+def phase_closure(torch, rng):
+    """Closure mode through the kernels == the plain closure; a complete
+    index answers exactly as scipy does."""
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.core import multi_bfs
+    from repro_torch.index import (build_index, reach_counts_session,
+                                   reach_session)
+
+    arrays, _ = graph500_state_arrays(CLOSURE_SCALE, CLOSURE_CAPACITY, rng)
+    st = state_from_numpy(*arrays, device=DEVICE)
+    q = CLOSURE_Q
+    srcs = rng.choice(np.flatnonzero(arrays[1]), q).astype(np.int32)
+    dsts = np.full(q, -1, np.int32)
+    reset_counts()
+    a = multi_bfs(st, srcs, dsts, backend="hybrid_cuda", parents=False)
+    n = counts()
+    b = multi_bfs(st, srcs, dsts, backend="hybrid", parents=False)
+    for f, x, y in zip(a._fields, a, b):
+        if not torch.equal(x, y):
+            raise AssertionError(f"closure hybrid_cuda != hybrid: {f}")
+    require_launched(n, ("B1", "B2"), "in the kernel-routed closure")
+    ia = build_index(st, q, backend="hybrid_cuda")   # also warms cuBLAS
+    times = {}
+    for be in ("hybrid", "hybrid_cuda"):
+        t0 = time.perf_counter()
+        ib = build_index(st, q, backend=be)
+        sync(torch)
+        times[be] = time.perf_counter() - t0
+        same_index(ia, ib, f"build_index hybrid_cuda != {be}")
+    log(f"closure: multi_bfs(parents=False) hybrid_cuda == hybrid at "
+        f"V={st.capacity} Q={q} ({int(a.supersteps)} supersteps, B1 "
+        f"{n['B1']} / B2 {n['B2']} launches); build_index({q}) hybrid_cuda "
+        f"== hybrid on every array ({times['hybrid_cuda'] * 1e3:.3f} ms vs "
+        f"{times['hybrid'] * 1e3:.3f} ms)")
+    del a, b, ia, ib, st
+
+    n_keys, n_pairs = 1 << COMPLETE_SCALE, COMPLETE_PAIRS
+    arrays, _ = graph500_state_arrays(COMPLETE_SCALE, COMPLETE_CAPACITY, rng)
+    st = state_from_numpy(*arrays, device=DEVICE)
+    index = build_index(st)
+    if not index.complete or index.num_landmarks != n_keys:
+        raise AssertionError("the default index is not complete")
+    pairs = list(zip(rng.integers(0, n_keys, n_pairs).tolist(),
+                     rng.integers(0, n_keys, n_pairs).tolist()))
+    res = reach_session(lambda: st, index, pairs)
+    if res.from_index != len(pairs) or res.stale:
+        raise AssertionError(f"complete index left pairs undecided: {res}")
+    reachable = check_reach(st, pairs, res.found, "complete index")
+    keys = [k for k, _ in pairs]
+    got, served = reach_counts_session(lambda: st, index, keys)
+    g, _, slot_of = live_graph(st)
+    srcs, dist = scipy_dist(g, slot_of, keys)
+    want = [int(np.isfinite(dist[s]).sum()) for s in srcs]
+    if not served or got.tolist() != want:
+        raise AssertionError("reach_counts_session differs from scipy")
+    log(f"complete index: SCALE {COMPLETE_SCALE}, {n_keys} landmarks, label "
+        f"bits OUT {int(index.out_label_bits.sum())} / IN "
+        f"{int(index.in_label_bits.sum())} of {int(index.fwd.sum())} closure "
+        f"bits; {n_pairs} pairs all from the index, {reachable} reachable "
+        f"and {n_pairs - reachable} exact negatives; their sources' "
+        f"reachable counts equal scipy")
+
+
+def live_graph(state):
+    """(scipy CSR of the live edges, sorted edge ids r * V + c, key -> slot
+    of the alive vertices) of ``state``."""
     import scipy.sparse as sp
-    from scipy.sparse.csgraph import shortest_path
 
     from repro_torch.core.graph import traversable_packed, unpack_bits
 
@@ -331,12 +536,41 @@ def check_answers(state, pairs, answers, tag):
     vkey = state.vkey.cpu().numpy()
     valive = state.valive.cpu().numpy()
     slot_of = {int(vkey[s]): int(s) for s in np.flatnonzero(valive)}
-    srcs = [slot_of.get(k, -1) for k, _ in pairs]
+    return g, np.sort(rows.astype(np.int64) * v + cols), slot_of
+
+
+def scipy_dist(g, slot_of, keys):
+    """(slot per key, -1 if absent; BFS hop rows of the present ones, by
+    slot) from scipy."""
+    from scipy.sparse.csgraph import shortest_path
+
+    srcs = [slot_of.get(k, -1) for k in keys]
     uniq = sorted({s for s in srcs if s >= 0})
     dist = (shortest_path(g, unweighted=True, indices=uniq)
-            if uniq else np.zeros((0, v)))
-    row_of = {s: i for i, s in enumerate(uniq)}
-    edge_ids = np.sort(rows.astype(np.int64) * v + cols)
+            if uniq else np.zeros((0, g.shape[0])))
+    return srcs, {s: dist[i] for i, s in enumerate(uniq)}
+
+
+def check_reach(state, pairs, found, tag):
+    """Each reachability answer against scipy's BFS on the live edges of
+    ``state``; returns how many pairs are reachable."""
+    g, _, slot_of = live_graph(state)
+    srcs, dist = scipy_dist(g, slot_of, [k for k, _ in pairs])
+    want = [s >= 0 and slot_of.get(l, -1) >= 0
+            and bool(np.isfinite(dist[s][slot_of[l]]))
+            for (_, l), s in zip(pairs, srcs)]
+    bad = [(p, f) for p, f, w in zip(pairs, found, want) if f != w]
+    if bad:
+        raise AssertionError(f"{tag}: {len(bad)} answers differ from scipy, "
+                             f"e.g. {bad[:3]}")
+    return sum(want)
+
+
+def check_answers(state, pairs, answers, tag):
+    """Each answer against scipy's BFS on the live edges of ``state``."""
+    g, edge_ids, slot_of = live_graph(state)
+    v = state.capacity
+    srcs, dist = scipy_dist(g, slot_of, [k for k, _ in pairs])
 
     def is_chain(slots):
         e = np.asarray(slots[:-1], np.int64) * v + np.asarray(slots[1:])
@@ -346,7 +580,7 @@ def check_answers(state, pairs, answers, tag):
 
     for (k, l), s, (found, keys) in zip(pairs, srcs, answers):
         d = slot_of.get(l, -1)
-        hops = dist[row_of[s], d] if s >= 0 and d >= 0 else np.inf
+        hops = dist[s][d] if s >= 0 and d >= 0 else np.inf
         if found != bool(np.isfinite(hops)):
             raise AssertionError(f"{tag}: found {found} for {k}->{l}, "
                                  f"scipy hops {hops}")
@@ -456,9 +690,7 @@ def phase_main(torch, rng, rounds: int):
                 f"{single_s[-1] * 1e3:.3f} ms ({int(pr.rounds)} collects, "
                 f"found {bool(pr.found)})")
     launches = counts()
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel never ran on the main path: "
-                             f"{launches}")
+    require_launched(launches, BFS_KERNELS, "on the main path")
     if max(rounds_seen) <= 2:
         raise AssertionError("no session needed more than 2 collects")
     if not bool(transpose_invariant(cur["st"])):
@@ -473,7 +705,122 @@ def phase_main(torch, rng, rounds: int):
         f"single sessions equal scipy BFS (live edges {checked_edges[-1]})")
     log(f"main-path launches: {launches}; per get_paths_session "
         f"{per_session}; per get_path_session {per_single}")
-    return cur["st"], launches, pair_sets[0], batches[0]
+    return cur["st"], launches, pair_sets[0], batches[0], deg_src
+
+
+def small_refresh_edge(torch, index, st):
+    """Keys (k, l) of an AddE whose refresh stays incremental: k and l are
+    alive non-landmarks that reach no landmark, so the backward closures
+    are unaffected, and k is reached by as few landmarks as possible (at
+    least one), so some forward closures are re-traversed."""
+    is_lm = torch.zeros_like(st.valive)
+    is_lm[index.landmarks.long()] = True
+    reached_by = index.fwd.sum(0)
+    cand = st.valive & ~is_lm & ~index.bwd.any(0)
+    slots = torch.nonzero(cand).flatten()
+    if slots.numel() < 2:
+        raise AssertionError("no vertex outside the landmarks' reach")
+    score = reached_by[slots]
+    score = torch.where(score > 0, score, score.max() + 1)
+    x = int(slots[int(score.argmin())])
+    z = int(slots[0] if int(slots[0]) != x else slots[1])
+    return int(st.vkey[x]), int(st.vkey[z]), int(reached_by[x])
+
+
+def phase_index(torch, st, deg_src, rng):
+    """The reachability index at full size on the phase-3 state."""
+    from repro_torch.convert import op_batch_from_numpy
+    from repro_torch.core import OP_ADD_E, apply_ops_fast
+    from repro_torch.index import build_index, reach_session, refresh
+
+    n = 1 << SCALE
+    sync(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    # launches of the build and refreshes, and of the served sessions
+    closure, serve = dict.fromkeys(counts(), 0), dict.fromkeys(counts(), 0)
+    t0 = time.perf_counter()
+    index = counted(closure, lambda: build_index(st, INDEX_LANDMARKS))
+    sync(torch)
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated() - base
+    log(f"index: build_index({INDEX_LANDMARKS}) {build_s * 1e3:.3f} ms, "
+        f"peak {build_peak / 1e9:.3f} GB above the start; "
+        f"labels {tuple(index.out_label.shape)} words, OUT bits "
+        f"{int(index.out_label_bits.sum())} / IN "
+        f"{int(index.in_label_bits.sum())} of {int(index.fwd.sum())} / "
+        f"{int(index.bwd.sum())} closure bits; launches {closure}")
+    cur = {"st": st}
+    fresh_s, stale_s, refresh_s, modes = [], [], [], []
+    for r in range(INDEX_ROUNDS):
+        pairs = list(zip(rng.choice(deg_src, QUERIES).tolist(),
+                         rng.integers(0, n, QUERIES).tolist()))
+        t0 = time.perf_counter()
+        fres = counted(serve, lambda: reach_session(lambda: cur["st"],
+                                                    index, pairs))
+        sync(torch)
+        fresh_s.append(time.perf_counter() - t0)
+        if fres.stale or fres.from_index == 0:
+            raise AssertionError(f"round {r}: a fresh index served nothing")
+        reach = check_reach(cur["st"], pairs, fres.found, f"index {r} fresh")
+        cur["st"], _ = apply_ops_fast(cur["st"],
+                                      equal_mix_batch(rng, n, DEVICE))
+        t0 = time.perf_counter()
+        sres = counted(serve, lambda: reach_session(lambda: cur["st"],
+                                                    index, pairs))
+        sync(torch)
+        stale_s.append(time.perf_counter() - t0)
+        if not sres.stale or sres.fellback != QUERIES:
+            raise AssertionError(f"round {r}: a stale index served")
+        check_reach(cur["st"], pairs, sres.found, f"index {r} stale")
+        t0 = time.perf_counter()
+        index, info = counted(closure, lambda: refresh(index, cur["st"]))
+        sync(torch)
+        refresh_s.append(time.perf_counter() - t0)
+        modes.append(info["mode"])
+        same_index(index, build_index(
+            cur["st"], landmark_slots=index.landmarks), f"refresh {r}")
+        log(f"index round {r}: fresh reach_session {fresh_s[-1] * 1e3:.3f} "
+            f"ms (from_index {fres.from_index}, fellback {fres.fellback}, "
+            f"reachable {reach}/{QUERIES}); stale {stale_s[-1] * 1e3:.3f} ms "
+            f"({sres.rounds} collects); refresh {refresh_s[-1] * 1e3:.3f} ms "
+            f"({info['mode']}, rebuilt {info['rebuilt']})")
+
+    k, l, hit = small_refresh_edge(torch, index, cur["st"])
+    cur["st"], _ = apply_ops_fast(cur["st"], op_batch_from_numpy(
+        [OP_ADD_E], [k], [l], [-1], DEVICE))
+    t0 = time.perf_counter()
+    index, info = counted(closure, lambda: refresh(index, cur["st"]))
+    sync(torch)
+    inc_s = time.perf_counter() - t0
+    if info["mode"] != "incremental":
+        raise AssertionError(f"small refresh took {info}")
+    same_index(index, build_index(
+        cur["st"], landmark_slots=index.landmarks), "incremental refresh")
+    fres = counted(serve, lambda: reach_session(lambda: cur["st"], index,
+                                                pairs))
+    if fres.stale or fres.from_index == 0:
+        raise AssertionError("the incrementally refreshed index served nothing")
+    check_reach(cur["st"], pairs, fres.found, "index incremental")
+    sync(torch)
+    peak = torch.cuda.max_memory_allocated()
+    require_launched(closure, ("B1", "B2"), "in the build and refreshes")
+    require_launched(serve, ("B4",), "in the index-served sessions")
+    launches = {k: closure[k] + serve[k] for k in closure}
+    log(f"index incremental: AddE {k}->{l} (its source reached by {hit} "
+        f"landmarks): refresh {inc_s * 1e3:.3f} ms ({info['mode']}, rebuilt "
+        f"{info['rebuilt']}); answers equal scipy")
+    med = statistics.median
+    log(f"index medians over {INDEX_ROUNDS} rounds: build_index "
+        f"{build_s * 1e3:.3f} ms (once), refresh {med(refresh_s) * 1e3:.3f} "
+        f"ms (modes {modes}), fresh reach_session {med(fresh_s) * 1e3:.3f} "
+        f"ms, stale reach_session {med(stale_s) * 1e3:.3f} ms (Q={QUERIES}); "
+        f"peak memory {peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} GB above "
+        f"the {base / 1e9:.3f} GB held at the start)")
+    log(f"index-path launches: build and {INDEX_ROUNDS + 1} refreshes "
+        f"{closure}; {2 * INDEX_ROUNDS + 1} sessions {serve}; every refresh equals a full "
+        f"rebuild over its landmarks; every answer equals scipy")
+    return index, cur["st"], pairs, launches
 
 
 def _busy_ms(trace_file: Path):
@@ -497,21 +844,36 @@ def _busy_ms(trace_file: Path):
     return busy / 1e3, per_name
 
 
-def phase_profile(torch, st, pairs, batch):
-    """Device busy share of one batch, one session and one single session
-    (torch.profiler; Chrome traces written to build/chip_smoke_traces/)."""
-    from torch.profiler import ProfilerActivity, profile
-
+def main_path_work(st, pairs, batch):
+    """One batch, one session and one single session on ``st``."""
     from repro_torch.core import (apply_ops_fast, get_path_session,
                                   get_paths_session)
 
-    out_dir = ROOT / "build" / "chip_smoke_traces"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    work = {
+    return {
         "apply_ops_fast": lambda: apply_ops_fast(st, batch),
         "get_paths_session": lambda: get_paths_session(lambda: st, pairs),
         "get_path_session": lambda: get_path_session(lambda: st, *pairs[0]),
     }
+
+
+def index_work(index, st, pairs):
+    """One index build and one fresh index-served session on ``st``."""
+    from repro_torch.index import build_index, reach_session
+
+    return {
+        "build_index": lambda: build_index(st, INDEX_LANDMARKS),
+        "reach_session": lambda: reach_session(lambda: st, index, pairs),
+    }
+
+
+def phase_profile(torch, work):
+    """Device busy share of each call in ``work`` (name -> function), run
+    once under torch.profiler after one warm-up call; Chrome traces are
+    written to build/chip_smoke_traces/."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out_dir = TRACE_DIR
+    out_dir.mkdir(parents=True, exist_ok=True)
     for name, fn in work.items():
         fn()
         sync(torch)
@@ -534,58 +896,80 @@ def phase_profile(torch, st, pairs, batch):
             + "; ".join(f"{k} {v:.3f} ms" for k, v in top))
 
 
-def phase_kernel_times(torch, st, pairs, launches, timer):
-    """Time each kernel on inputs captured from one Q=64 traversal."""
-    from repro_torch.core import bfs, find_slots, multi_bfs
-    from repro_torch.kernels.bfs_multi_step import ref as b1ref
-    from repro_torch.kernels.bfs_pull_step import ref as b2ref
-    from repro_torch.kernels.bfs_step import ref as b3ref
+KERNEL_META = {  # name, package, wrapper that launches, plain version,
+    #               TPU kernel
+    "B1": ("multi_bfs_step_packed", "bfs_multi_step",
+           "multi_bfs_step_packed_kernel", "multi_bfs_step_packed_ref",
+           "src/repro/kernels/bfs_multi_step/kernel.py:232"),
+    "B2": ("bfs_pull_step", "bfs_pull_step", "bfs_pull_step_rows",
+           "bfs_pull_step_ref",
+           "src/repro/kernels/bfs_pull_step/kernel.py:139"),
+    "B3": ("bfs_step_packed", "bfs_step", "bfs_step_packed_kernel",
+           "bfs_step_packed_ref", "src/repro/kernels/bfs_step/kernel.py:165"),
+    "B4": ("label_join_packed", "label_join", "label_join_packed",
+           "label_join_packed_ref",
+           "src/repro/kernels/label_join/kernel.py:150"),
+    "B8": ("label_join", "label_join", "label_join", "label_join_ref",
+           "src/repro/kernels/label_join/kernel.py:80"),
+}
 
-    mods = _kernel_mods()
-    entry = {"B1": "multi_bfs_step_packed_kernel", "B2": "bfs_pull_step_rows",
-             "B3": "bfs_step_packed_kernel"}
-    plain = {"B1": b1ref.multi_bfs_step_packed_ref,
-             "B2": b2ref.bfs_pull_step_ref,
-             "B3": b3ref.bfs_step_packed_ref}
+
+def phase_kernel_times(torch, st, pairs, index, ist, ipairs, launches,
+                       timer):
+    """Time each kernel on inputs captured from one Q=64 traversal of
+    ``st`` (B1-B3) and one Q=64 probe of ``index`` on ``ist`` (B4); B8,
+    which no path launches, on that probe's label words unpacked."""
+    import importlib
+
+    from repro_torch.core import bfs, find_slots, multi_bfs
+    from repro_torch.core.graph import unpack_bits
+    from repro_torch.index import query_reach
+
+    mods, plain = {}, {}
+    for key, (_, pkg, _, ref_fn, _) in KERNEL_META.items():
+        mods[key] = importlib.import_module(f"repro_torch.kernels.{pkg}.ops")
+        ref = importlib.import_module(f"repro_torch.kernels.{pkg}.ref")
+        plain[key] = getattr(ref, ref_fn)
     captured = {k: [] for k in mods}
-    originals = {k: getattr(m, entry[k]) for k, m in mods.items()}
+    originals = {k: getattr(m, KERNEL_META[k][2]) for k, m in mods.items()}
 
     def recorder(key):
         def rec(*args):
-            # the adjacency (argument 1) is the state's and stays unchanged
-            captured[key].append(tuple(a if i == 1 else a.clone()
-                                       for i, a in enumerate(args)))
+            # a BFS kernel's adjacency (argument 1) is the state's and
+            # stays unchanged
+            captured[key].append(tuple(
+                a if i == 1 and key in BFS_KERNELS else a.clone()
+                for i, a in enumerate(args)))
             return originals[key](*args)
         return rec
 
+    def slots(state, keys):
+        return find_slots(state, torch.tensor(keys, dtype=torch.int32,
+                                              device=state.device))
+
     for k, m in mods.items():
-        setattr(m, entry[k], recorder(k))
+        setattr(m, KERNEL_META[k][2], recorder(k))
     try:
-        dev = st.device
-        ks = torch.tensor([p[0] for p in pairs], dtype=torch.int32, device=dev)
-        ls = torch.tensor([p[1] for p in pairs], dtype=torch.int32, device=dev)
-        multi_bfs(st, find_slots(st, ks), find_slots(st, ls),
+        sk = slots(st, [p[0] for p in pairs])
+        multi_bfs(st, sk, slots(st, [p[1] for p in pairs]),
                   backend="hybrid_cuda")
         # one single-query traversal to the end: B3 pushes, then B2 pulls
-        bfs(st, find_slots(st, ks[:1]), -1, backend="hybrid_cuda")
+        bfs(st, sk[:1], -1, backend="hybrid_cuda")
+        query_reach(index, slots(ist, [p[0] for p in ipairs]),
+                    slots(ist, [p[1] for p in ipairs]))
     finally:
         for k, m in mods.items():
-            setattr(m, entry[k], originals[k])
+            setattr(m, KERNEL_META[k][2], originals[k])
+    captured["B8"] = [tuple(unpack_bits(a, index.num_landmarks)
+                            .to(torch.int32) for a in c)
+                      for c in captured["B4"]]
     sync(torch)
 
     out = []
-    meta = {
-        "B1": ("multi_bfs_step_packed", "bfs_multi_step",
-               "src/repro/kernels/bfs_multi_step/kernel.py:232"),
-        "B2": ("bfs_pull_step", "bfs_pull_step",
-               "src/repro/kernels/bfs_pull_step/kernel.py:139"),
-        "B3": ("bfs_step_packed", "bfs_step",
-               "src/repro/kernels/bfs_step/kernel.py:165"),
-    }
     for key, calls in captured.items():
-        name, pkg, replaces = meta[key]
+        name, pkg, _, _, replaces = KERNEL_META[key]
         kern = originals[key]
-        ms, pms, bms, bys, err = [], [], [], [], 0
+        ms, dms, pms, bms, bys, err = [], [], [], [], [], 0
         for args in calls:
             got = kern(*args)
             want = plain[key](*args)
@@ -596,21 +980,26 @@ def phase_kernel_times(torch, st, pairs, launches, timer):
             err = max(err, max(int((x.to(torch.int64) - y.to(torch.int64))
                                    .abs().max()) for x, y in zip(got, want)))
             ms.append(timer.ms(lambda: kern(*args), 20))
+            dms.append(timer.device_ms(lambda: kern(*args), 20))
             pms.append(timer.ms(lambda: plain[key](*args), 2))
             nbytes, nops = _work(torch, key, args, want)
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / ALU_OPS_PER_S
             bms.append(max(t_bytes, t_ops) * 1e3)
             bys.append("bytes" if t_bytes >= t_ops else "operations")
         shapes = sorted({tuple(tuple(a.shape) for a in c[:2]) for c in calls})
+        dev = (f"{statistics.mean(dms):.4f} ms" if None not in dms
+               else "not measured")
         log(f"{name} ({key}): {len(calls)} captured launches at shapes "
-            f"{shapes}: kernel {statistics.mean(ms):.4f} ms/launch, plain "
-            f"{statistics.mean(pms):.3f} ms, bound {statistics.mean(bms):.4f}"
+            f"{shapes}: kernel {statistics.mean(ms):.4f} ms/launch (CUDA "
+            f"events; its kernels' device time {dev}), plain "
+            f"{statistics.mean(pms):.3f} ms, bound {statistics.mean(bms):.6f}"
             f" ms ({max(set(bys), key=bys.count)})")
         out.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/{pkg}/kernel.cu",
             "replaces": replaces, "launches": launches[key],
             "max_abs_err": err, "ms": statistics.mean(ms),
+            "device_ms": None if None in dms else statistics.mean(dms),
             "plain_ms": statistics.mean(pms),
             "bound_ms": statistics.mean(bms),
             "bound_by": max(set(bys), key=bys.count), "library_ms": None,
@@ -621,7 +1010,14 @@ def phase_kernel_times(torch, st, pairs, launches, timer):
 def _work(torch, key, args, want):
     """(bytes, 32-bit word operations) one call needs on these inputs: each
     input byte read once, each output written once; for the adjacency only
-    the words the data requires."""
+    the words the data requires, and for the IN labels only the words
+    whose OUT word is nonzero."""
+    if key in ("B4", "B8"):
+        out_rows, _ = args
+        need_in = int((out_rows != 0).sum())
+        outs = sum(t.numel() * t.element_size() for t in want)
+        nbytes = out_rows.numel() * 4 + need_in * 4 + outs
+        return nbytes, (2 if key == "B4" else 1) * need_in
     if key in ("B1", "B3"):
         fr, adj, alive, vis = args
         fr2 = fr.reshape(-1, fr.shape[-1])
@@ -658,14 +1054,24 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port is not importable: {e}", file=sys.stderr)
         return 2
     rng = np.random.default_rng(args.seed)
+    # the index phases draw from a stream of their own, so the other
+    # phases' graphs and batches do not depend on them
+    index_rng = np.random.default_rng([args.seed, 1])
     t_all = time.perf_counter()
     card = phase_device(torch)
     phase_kernels(torch, rng)
+    phase_index_kernels(torch, index_rng)
     phase_hybrid(torch, rng)
-    st, launches, pairs, batch = phase_main(torch, rng, ROUNDS)
-    phase_profile(torch, st, pairs, batch)
+    phase_closure(torch, index_rng)
+    st, launches, pairs, batch, deg_src = phase_main(torch, rng, ROUNDS)
+    phase_profile(torch, main_path_work(st, pairs, batch))
+    index, ist, ipairs, ilaunches = phase_index(torch, st, deg_src,
+                                                index_rng)
+    phase_profile(torch, index_work(index, ist, ipairs))
+    launches.update({k: ilaunches[k] for k in ("B4", "B8")})
     timer = Timer(torch)
-    kernels = phase_kernel_times(torch, st, pairs, launches, timer)
+    kernels = phase_kernel_times(torch, st, pairs, index, ist, ipairs,
+                                 launches, timer)
     log(f"card: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

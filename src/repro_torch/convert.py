@@ -1,4 +1,5 @@
-"""Carry graph state and op batches across the numpy boundary.
+"""Carry graph state, op batches and reachability indexes across the numpy
+boundary.
 
 Packed words cross as numpy ``uint32`` arrays (the JAX package's dtype)
 and live in the port as ``torch.int32`` with the same bits. The
@@ -11,6 +12,7 @@ import torch
 
 from repro_torch.core.graph import (GraphState, OpBatch, packed_width,
                                     resolve_device)
+from repro_torch.index.labels import ReachIndex
 
 
 def _words_in(x, shape, name) -> torch.Tensor:
@@ -57,3 +59,24 @@ def op_batch_from_numpy(opcode, key1, key2, expect, device=None) -> OpBatch:
     if len({c.shape for c in cols}) != 1:
         raise ValueError("op batch columns must have one shape")
     return OpBatch(*(torch.from_numpy(c.copy()).to(dev) for c in cols))
+
+
+def index_from_numpy(landmarks, out_label_u32, in_label_u32, fwd, bwd, alive,
+                     versions, complete: bool, requested: int | None,
+                     device=None):
+    """A ``repro_torch.index.ReachIndex`` from the arrays of a JAX
+    ``ReachIndex`` as numpy (the label words as uint32 or int32) plus its
+    host metadata ``complete`` and ``requested``."""
+    dev = resolve_device(device)
+    lm = np.array(landmarks, np.int32).reshape(-1)
+    al = np.array(alive, np.bool_)
+    shape = (al.shape[0], packed_width(lm.shape[0]))
+    fields = (torch.from_numpy(lm),
+              _words_in(out_label_u32, shape, "out_label"),
+              _words_in(in_label_u32, shape, "in_label"),
+              torch.from_numpy(np.array(fwd, np.bool_)),
+              torch.from_numpy(np.array(bwd, np.bool_)),
+              torch.from_numpy(al),
+              torch.from_numpy(np.array(versions, np.int32)))
+    return ReachIndex(*(f.to(dev) for f in fields), complete=bool(complete),
+                      requested=None if requested is None else int(requested))

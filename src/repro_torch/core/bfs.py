@@ -27,6 +27,14 @@ test (any query active) and the two popcounts the direction switch needs.
 The same loop body serves the plain and the traced runs: with tracing on,
 each superstep is one ``bfs.superstep`` span with its direction tag and
 popcounts.
+
+Closure mode (``parents=False``, the index builds) keeps only ``new``. On
+the kernel backends each superstep runs the B1 push or the B2 pull and
+drops their parents, where JAX keeps closure mode in plain jnp: XLA fuses
+its where+reduce, but eager torch would materialize a [Q, V, W] word
+volume (tens of GB at the index's Q), so on the card the kernels are what
+keeps the closure inside memory. The plain backends keep the plain
+closure.
 """
 from __future__ import annotations
 
@@ -53,6 +61,7 @@ from repro_torch.obs.metrics import global_registry as _obs_registry
 BACKENDS = ("dense", "packed", "hybrid", "packed_cuda", "hybrid_cuda")
 PACKED_BACKENDS = ("packed", "packed_cuda")
 HYBRID_BACKENDS = ("hybrid", "hybrid_cuda")
+CUDA_BACKENDS = ("packed_cuda", "hybrid_cuda")
 
 # Beamer-style switch: go bottom-up when |frontier| * alpha >= |unvisited|,
 # return top-down once |frontier| < V / beta (the JAX package's defaults).
@@ -249,9 +258,10 @@ def _run(state: GraphState, src, dst, backend: str, parents: bool,
         adj_arg = state.adj
     else:
         adj_arg = state.adj_packed
-    if not parents:
-        # closure mode (index builds): plain torch on every backend, as in
-        # JAX; the expansion operand is hoisted out of the loop
+    kernel_closure = not parents and backend in CUDA_BACKENDS
+    if not parents and not kernel_closure:
+        # plain closure mode, as in JAX; the expansion operand is hoisted
+        # out of the loop
         closure_op = (traversable(state.adj, alive).to(torch.float32)
                       if backend == "dense" else
                       traversable_packed(state.adj_packed, alive,
@@ -302,13 +312,14 @@ def _run(state: GraphState, src, dst, backend: str, parents: bool,
                     pulling = pick_direction(pulling, nf, nu, q * v, alpha,
                                              beta)
                 expanded |= f
-                if parents:
+                if parents or kernel_closure:
                     if pulling:
                         new, par = pull_fn(f, state.adj_in_packed, alive,
                                            visited)
                     else:
                         new, par = push_fn(f, adj_arg, alive, visited)
-                    parent = torch.where(new, par, parent)
+                    if parents:
+                        parent = torch.where(new, par, parent)
                 else:
                     new = _closure_step(f, visited, closure_op, alive,
                                         state.adj_in_packed, v,
@@ -359,8 +370,9 @@ def multi_bfs(state: GraphState, src_slots, dst_slots,
     is streamed once per superstep. Finished queries expose an empty
     frontier (their outputs freeze). ``dst_slots[q] < 0`` explores query
     q's whole reachable set. ``parents=False`` is closure-only mode:
-    ``parent`` comes back all -1, everything else is unchanged; it runs in
-    plain torch on every backend. The hybrid backends pick push or pull
+    ``parent`` comes back all -1, everything else is unchanged; the kernel
+    backends run it through B1/B2 and drop their parents, the plain
+    backends in plain torch. The hybrid backends pick push or pull
     per superstep from the active queries' pooled popcounts."""
     backend = _resolve_backend(backend, state.device)
     src = _as_slots(src_slots, state.device)

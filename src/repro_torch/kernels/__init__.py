@@ -3,6 +3,7 @@
   bfs_multi_step  B1, the packed Q-frontier push superstep
   bfs_pull_step   B2, the bottom-up pull superstep
   bfs_step        B3, the packed single-frontier push superstep
+  label_join      B4 and B8, the packed and dense 2-hop label joins
 
 Each package holds ``kernel.cu`` (the kernel, built by ``_build``),
 ``ref.py`` (its plain PyTorch version) and ``ops.py`` (the wrappers: a CUDA

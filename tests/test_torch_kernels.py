@@ -6,6 +6,10 @@ mode and against the JAX ref.py oracles, bit for bit (tolerance 0):
                      including a row slice R < V
   B2 bfs_pull_step   new, parent (global ids), including a row slice
   B3 bfs_step        new, parent and raw reach_words
+  B4 label_join       packed: hits, hub (label words with bit 31 set, all-zero
+                      OUT rows)
+  B8 label_join       dense: hits, hub on the 0/1 slabs, equal to B4 on the
+                      packed rows
 
 V is not a multiple of 32 and edges land in column 31 (the int32 sign
 bit). The CUDA kernels themselves need the card: the ``cuda``-marked test
@@ -30,6 +34,13 @@ from repro_torch.kernels.bfs_pull_step.ops import bfs_pull_step_rows
 from repro_torch.kernels.bfs_pull_step.ref import bfs_pull_step_ref
 from repro_torch.kernels.bfs_step.ops import bfs_step_packed_kernel
 from repro_torch.kernels.bfs_step.ref import bfs_step_packed_ref
+from repro.kernels.label_join.kernel import (label_join_packed_pallas,
+                                             label_join_pallas)
+from repro.kernels.label_join.ref import label_join_packed_ref as j_b4
+from repro.kernels.label_join.ref import label_join_ref as j_b8
+from repro_torch.kernels.label_join.ops import label_join, label_join_packed
+from repro_torch.kernels.label_join.ref import (label_join_packed_ref,
+                                                label_join_ref)
 
 
 def _case(v, q, density, seed):
@@ -182,3 +193,76 @@ def test_cuda_kernels_match_plain_versions(cuda_device, v, q, density):
     pargs = [fw, _t(in_words).to(d), args[2], args[3]]
     for a, b in zip(bfs_pull_step_rows(*pargs), bfs_pull_step_ref(*pargs)):
         assert torch.equal(a, b)
+
+
+def _labels(q, l, density, seed):
+    """0/1 int32 OUT/IN slabs [Q, L] with a common landmark in column 31
+    (the int32 sign bit of word 0) and an all-zero OUT row."""
+    rng = np.random.default_rng(seed)
+    a = (rng.random((q, l)) < density).astype(np.int32)
+    b = (rng.random((q, l)) < density).astype(np.int32)
+    if l > 31:
+        a[0, 31] = b[0, 31] = 1
+    if q > 1:
+        a[-1] = 0
+    return a, b
+
+
+def _pack(rows):
+    return pack_bits(torch.from_numpy(rows != 0))
+
+
+LABEL_CASES = [(1, 31, 0.3), (5, 32, 0.0), (8, 64, 0.3), (13, 130, 0.01),
+               (16, 256, 0.3)]
+
+
+@pytest.mark.parametrize("q,l,density", LABEL_CASES)
+def test_label_join_plain_matches_pallas_and_jax_refs(q, l, density):
+    a, b = _labels(q, l, density, seed=q * l)
+    pa, pb = _pack(a), _pack(b)
+    dense = label_join_ref(torch.from_numpy(a), torch.from_numpy(b))
+    packed = label_join_packed_ref(pa, pb)
+    ja, jb = jnp.asarray(pa.numpy().view(np.uint32)), jnp.asarray(
+        pb.numpy().view(np.uint32))
+    wants = [j_b8(jnp.asarray(a), jnp.asarray(b)), j_b4(ja, jb)]
+    if q % 8 == 0:       # the Pallas kernels take padded tiles
+        wants.append(label_join_packed_pallas(ja, jb, tq=q, tw=ja.shape[1]))
+        if l % 128 == 0:
+            wants.append(label_join_pallas(jnp.asarray(a), jnp.asarray(b),
+                                           tq=q, tl=128))
+    for want in wants:
+        for got in (dense, packed):
+            np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+            np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    # the CPU wrappers take exactly these plain versions
+    for x, y in zip(label_join(torch.from_numpy(a), torch.from_numpy(b)),
+                    dense):
+        assert torch.equal(x, y)
+    for x, y in zip(label_join_packed(pa, pb), packed):
+        assert torch.equal(x, y)
+
+
+def test_label_join_plain_handles_the_sign_bit_and_empty_shapes():
+    top = torch.tensor([[-2**31, 0], [-2**31 | 1, 0]], dtype=torch.int32)
+    hits, hub = label_join_packed_ref(top, torch.tensor(
+        [[-2**31, 0], [-2**31, 0]], dtype=torch.int32))
+    assert hits.tolist() == [1, 1] and hub.tolist() == [31, 31]
+    for fn in (label_join_ref, label_join_packed_ref):
+        hits, hub = fn(torch.zeros((3, 0), dtype=torch.int32),
+                       torch.zeros((3, 0), dtype=torch.int32))
+        assert hits.tolist() == [0, 0, 0] and hub.tolist() == [-1, -1, -1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,l,density", LABEL_CASES + [(1000, 1030, 0.3)])
+def test_cuda_label_join_kernels_match_plain_versions(cuda_device, q, l,
+                                                      density):
+    a, b = _labels(q, l, density, seed=q + l)
+    ta = torch.from_numpy(a).to(cuda_device)
+    tb = torch.from_numpy(b).to(cuda_device)
+    pa, pb = pack_bits(ta != 0), pack_bits(tb != 0)
+    dense = label_join(ta, tb)
+    packed = label_join_packed(pa, pb)
+    for got in (dense, packed):
+        for x, y in zip(got, label_join_ref(ta, tb)):
+            assert torch.equal(x, y)
