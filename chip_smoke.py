@@ -5,19 +5,24 @@
 
 Phases (each prints lines; the last line is the JSON result):
   1. device: the card's name and power limit (nvidia-smi), the kernel build
-  2. kernels: B1 (multi push), B2 (pull) and B3 (single push) against their
-     plain PyTorch versions on the card, bit for bit (tolerance 0: every
-     output is an integer or a bool), over densities 0 / 0.01 / 0.3, V in
-     {2000, 2048}, Q in {1, 5, 16, 70} (and 1,024, the index closures' Q,
-     at V = 2048), an edge in column 31 and row slices; B4 (packed label
+  2. kernels: B1 (multi push), B2 (pull), B3 (single push), B6 (dense
+     multi push) and B7 (dense single push) against their plain PyTorch
+     versions on the card, bit for bit (tolerance 0: every output is an
+     integer or a bool), over densities 0 / 0.01 / 0.3, V in {2000, 2048},
+     Q in {1, 5, 16, 70} (and 1,024, the index closures' Q, at V = 2048),
+     an edge in column 31 and row slices; B5 (packed edge writes) and B9
+     (dense) against theirs over B in {1, 1024} lanes with duplicate
+     targets, masked lanes parked out of range, column 31 and dense values
+     outside {0, 1}; B4 (packed label
      join) and B8 (dense label join) against theirs and against each other
      over Q in {1, 5, 64, 1000}, L in {31, 32, 1024, 1030}, densities
      0 / 0.01 / 0.3, a common landmark in column 31 and all-zero OUT rows;
      then multi_bfs / bfs on "hybrid_cuda" against "hybrid" at V = 4096,
      Q = 8 on a Graph500 graph, every result field
   2b. closure routing: closure-mode multi_bfs (Q = 256) and build_index
-     (256 landmarks) on "hybrid_cuda" against "hybrid" on a Graph500
-     SCALE-12 graph, every field; a complete index (every alive vertex a
+     (the 256 highest-degree slots) on "hybrid_cuda" against "hybrid", and
+     on "dense_cuda" (B6) against "hybrid_cuda", on a Graph500 SCALE-12
+     graph, every field; a complete index (every alive vertex a
      landmark) of a SCALE-10 graph answers 1,024 pairs and their sources'
      reachable counts exactly as scipy's BFS does
   3. main path at full size: a Graph500 SCALE-16 graph (65,536 vertices,
@@ -30,23 +35,40 @@ Phases (each prints lines; the last line is the JSON result):
      holds at the end; every matched answer equals scipy's BFS on the live
      edges of the state it was validated on, and every path is a chain of
      live edges; each kernel was launched on the main path
-  5. the device's busy and idle share over one batch, one session and one
-     single session, and after phase 7 over one index build and one fresh
-     index-served session (torch.profiler; Chrome traces in
-     build/chip_smoke_traces/)
+  3b. the dense engine (JAX "pallas", here "dense_cuda": B6/B7 on the
+     uint8 [V, V] view, unpacked in row chunks) at full width on the
+     phase-3 end state: the view's build time and size, 4 rounds of
+     ``get_paths_session`` (Q = 64) and one ``get_path_session``; every
+     ``multi_bfs``/``bfs`` field equals "hybrid_cuda" on the same pairs,
+     every answer equals scipy's BFS; B6 and B7 must have launched there
+  5. the device's busy and idle share over one batch, one session, one
+     single session and one session on the dense engine, and after phase
+     7 over one index build and one fresh index-served session
+     (torch.profiler; Chrome traces in build/chip_smoke_traces/)
   6. per-kernel times at full size (CUDA events, L2 flushed between
      launches, and the kernels' own device time from a profiler trace) on
-     inputs captured from one more Q = 64 traversal (B1-B3) and one Q = 64
-     probe of the phase-7 index (B4); B8 on the same probe's labels
-     unpacked to 0/1 rows. Beside them the plain versions' times and the
-     bytes/operations bound
+     inputs captured from one more Q = 64 traversal (B1-B3), one on the
+     dense engine (B6, and B7 from one single-query traversal) and one
+     Q = 64 probe of the phase-7 index (B4); B8 on the same probe's labels
+     unpacked to 0/1 rows; B5 on ``adj_packed`` and B9 on the dense view
+     with the 1,024 lanes of one equal-mix batch's AddE/RemE slots (timed
+     in place; the public wrappers copy the matrix first). Beside them the
+     plain versions' times and the bytes/operations bound
   7. the reachability index at full size on the phase-3 state:
-     ``build_index`` with 1,024 landmarks, then 4 rounds of a fresh
+     ``build_index`` on the 1,024 highest-degree alive slots, computed here
+     and passed as ``landmark_slots`` (``pick_landmarks`` follows the JAX
+     package's order, which puts isolated vertices first: 18,756 of the
+     65,536 keys at seed 0),
+     refreshed with ``full_threshold=1.0`` so that no full refresh re-picks
+     them (every refresh is incremental), then 4 rounds of a fresh
      ``reach_session`` (Q = 64), an equal-mix batch, a ``reach_session``
      on the stale index (must fall back) and a ``refresh``; then one AddE
-     whose affected set is small, so that the refresh is incremental.
-     Every answer equals scipy's BFS on the state it was answered on;
-     every refreshed index equals a full rebuild over its landmarks. The
+     whose affected set is small, so that the refresh is incremental;
+     last, one more equal-mix batch and a ``refresh`` at the default
+     threshold, which must be full (a fresh ``pick_landmarks``) and equal
+     ``build_index(state, 1024)``; the pinned index is what phases 5
+     and 6 use. Every answer equals scipy's BFS on the state it was
+     answered on; every refreshed index equals a full rebuild. The
      counts are read around the build and refreshes alone (B1 and B2 must
      have run there) and around the sessions alone (B4 must have run
      there), never around the verification rebuilds. No path serves
@@ -79,14 +101,18 @@ QUERIES = 64
 ROUNDS = 8
 INDEX_LANDMARKS = 1024
 INDEX_ROUNDS = 4
+DENSE_ROUNDS = 4
 CLOSURE_SCALE, CLOSURE_CAPACITY, CLOSURE_Q = 12, 4160, 256
 COMPLETE_SCALE, COMPLETE_CAPACITY, COMPLETE_PAIRS = 10, 1088, 1024
 BFS_KERNELS = ("B1", "B2", "B3")
+DENSE_KERNELS = ("B6", "B7")
+EDGE_KERNELS = ("B5", "B9")
 MIX = (12.5, 12.5, 25, 12.5, 12.5, 25)   # AddV RemV HasV AddE RemE HasE
 DEVICE = "cuda"
 TRACE_DIR = ROOT / "build" / "chip_smoke_traces"
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 ALU_OPS_PER_S = 67e12        # float32 outside the tensor cores (32-bit ALU)
+INT8_OPS_PER_S = 1979e12     # int8 tensor cores, dense (a MAC is 2 ops)
 
 
 def log(*a):
@@ -262,11 +288,14 @@ def _counters():
     from repro_torch.kernels.bfs_multi_step import ops as b1
     from repro_torch.kernels.bfs_pull_step import ops as b2
     from repro_torch.kernels.bfs_step import ops as b3
+    from repro_torch.kernels.edge_update import ops as eu
     from repro_torch.kernels.label_join import ops as lj
 
     return {"B1": (b1, "launches"), "B2": (b2, "launches"),
             "B3": (b3, "launches"), "B4": (lj, "packed_launches"),
-            "B8": (lj, "dense_launches")}
+            "B5": (eu, "packed_launches"), "B6": (b1, "dense_launches"),
+            "B7": (b3, "dense_launches"), "B8": (lj, "dense_launches"),
+            "B9": (eu, "dense_launches")}
 
 
 def reset_counts():
@@ -300,8 +329,34 @@ def same(got, want, what):
             raise AssertionError(f"kernel != plain: {what}")
 
 
-def phase_kernels(torch, rng):
-    """Every kernel against its plain version on the card, bit for bit."""
+def edge_lanes(rng, v: int, b: int, device):
+    """rows, cols, vals, mask int32[b] of edge writes: lane 0 fires on
+    column 31 (the int32 sign bit), the last three lanes repeat its target
+    (the last firing one must win), masked lanes (mask <= 0) are partly
+    parked out of range, and values lie outside {0, 1} too."""
+    import torch
+
+    rows = rng.integers(0, v, b)
+    cols = rng.integers(0, v, b)
+    cols[0] = 31
+    vals = rng.choice([0, 1, 2, 7, 255, 256, -1], b)
+    mask = rng.choice([0, 1, 3, -2], b)
+    mask[0] = 1
+    if b > 4:
+        rows[-3:], cols[-3:] = rows[0], cols[0]
+        mask[-1] = 1
+    off = mask <= 0
+    rows[off & (rng.random(b) < 0.5)] = 10**6
+    cols[off & (rng.random(b) < 0.5)] = -10**6
+    return [torch.from_numpy(x.astype(np.int32)).to(device)
+            for x in (rows, cols, vals, mask)]
+
+
+def phase_kernels(torch, rng, rng2):
+    """Every kernel against its plain version on the card, bit for bit.
+    The dense and edge-write cases draw from ``rng2``, so that ``rng``
+    leaves this phase where the packed cases alone leave it (the later
+    phases' graphs do not depend on those cases)."""
     from repro_torch.core.graph import pack_bits
     from repro_torch.kernels.bfs_multi_step.ops import (
         multi_bfs_step_packed_kernel)
@@ -313,7 +368,7 @@ def phase_kernels(torch, rng):
     from repro_torch.kernels.bfs_step.ref import bfs_step_packed_ref
 
     dev = DEVICE
-    cases = 0
+    cases = edge_cases = 0
     for v in (2000, 2048):
         for dens in (0.0, 0.01, 0.3):
             adj_np = random_words(rng, v, dens)
@@ -347,10 +402,63 @@ def phase_kernels(torch, rng):
                 sa = (fr[0], adj, alive, vis[0])
                 same(bfs_step_packed_kernel(*sa),
                      bfs_step_packed_ref(*sa), f"B3 v={v}")
+                dense_cases(torch, fr, bits, alive, vis, (r0, r1), v)
                 cases += 1
+            edge_cases += edge_update_cases(torch, rng2, adj, bits, v)
+    v = 2001                                # rows not 4-byte aligned
+    bits = torch.from_numpy(rng2.random((v, v)) < 0.01).to(dev)
+    bits[0, 31] = True
+    alive = torch.from_numpy(rng2.random(v) < 0.9).to(dev)
+    for q in (1, 5, 16, 70):
+        fr = torch.from_numpy(rng2.random((q, v)) < 0.05).to(dev)
+        fr[0, 0] = True
+        vis = torch.from_numpy(rng2.random((q, v)) < 0.3).to(dev)
+        dense_cases(torch, fr, bits, alive, vis, (501, 1201), v)
+        cases += 1
     sync(torch)
     log(f"kernels vs plain: {cases} cases x (B1, B1 slice, B2, B2 slice, "
-        f"B3) bit-identical (tolerance 0)")
+        f"B3, B6, B6 slice, B7; at V = 2001 the dense three alone) and "
+        f"{edge_cases} edge-write cases x (B5, B9) bit-identical "
+        f"(tolerance 0)")
+
+
+def dense_cases(torch, fr, bits, alive, vis, rows, v):
+    """B6 (full and a row slice) and B7 against their plain versions."""
+    from repro_torch.kernels.bfs_multi_step.ops import multi_bfs_step
+    from repro_torch.kernels.bfs_multi_step.ref import multi_bfs_step_ref
+    from repro_torch.kernels.bfs_step.ops import bfs_step
+    from repro_torch.kernels.bfs_step.ref import bfs_step_ref
+
+    dense = bits.to(torch.uint8)
+    q = fr.shape[0]
+    args = (fr, dense, alive, vis)
+    same(multi_bfs_step(*args), multi_bfs_step_ref(*args),
+         f"B6 v={v} q={q}")
+    r0, r1 = rows
+    sl = (fr[:, r0:r1].contiguous(), dense[r0:r1], alive, vis)
+    same(multi_bfs_step(*sl), multi_bfs_step_ref(*sl), f"B6 slice v={v}")
+    sa = (fr[0], dense, alive, vis[0])
+    same(bfs_step(*sa), bfs_step_ref(*sa), f"B7 v={v}")
+
+
+def edge_update_cases(torch, rng, adj, bits, v):
+    """B5 on the packed words and B9 on the dense matrix against their
+    plain versions, at B = 1 and 1,024 lanes; returns the case count."""
+    from repro_torch.kernels.edge_update.ops import (edge_update,
+                                                     edge_update_packed)
+    from repro_torch.kernels.edge_update.ref import (edge_update_packed_ref,
+                                                     edge_update_ref)
+
+    dense = bits.to(torch.uint8)
+    ecnt = torch.from_numpy(rng.integers(0, 5, v).astype(np.int32)).to(
+        DEVICE)
+    for b in (1, 1024):
+        lanes = edge_lanes(rng, v, b, DEVICE)
+        same(edge_update_packed(adj, ecnt, *lanes),
+             edge_update_packed_ref(adj, ecnt, *lanes), f"B5 v={v} b={b}")
+        same(edge_update(dense, ecnt, *lanes),
+             edge_update_ref(dense, ecnt, *lanes), f"B9 v={v} b={b}")
+    return 2
 
 
 def phase_index_kernels(torch, rng):
@@ -442,6 +550,19 @@ def phase_hybrid(torch, rng):
         f"(hybrid_cuda check)")
 
 
+def hub_slots(state, n: int) -> np.ndarray:
+    """The ``n`` highest-degree alive slots (degree descending, ties by
+    slot): the hubs a landmark budget is meant for. ``pick_landmarks``
+    follows the JAX package's order instead, which puts alive vertices of
+    degree 0 first, so the index phases pin these as ``landmark_slots``."""
+    from repro_torch.index.labels import live_degrees
+
+    deg = live_degrees(state).cpu().numpy()
+    alive = state.valive.cpu().numpy()
+    order = np.lexsort((np.arange(deg.shape[0]), -deg))
+    return order[alive[order]][:n].astype(np.int32)
+
+
 def same_index(a, b, what):
     """Two ReachIndexes agree on every array and on ``complete``."""
     for f in ("landmarks", "out_label", "in_label", "fwd", "bwd", "alive",
@@ -473,20 +594,32 @@ def phase_closure(torch, rng):
         if not torch.equal(x, y):
             raise AssertionError(f"closure hybrid_cuda != hybrid: {f}")
     require_launched(n, ("B1", "B2"), "in the kernel-routed closure")
-    ia = build_index(st, q, backend="hybrid_cuda")   # also warms cuBLAS
+    reset_counts()
+    d = multi_bfs(st, srcs, dsts, backend="dense_cuda", parents=False)
+    nd = counts()
+    for f, x, y in zip(a._fields, d, a):
+        if not torch.equal(x, y):
+            raise AssertionError(f"closure dense_cuda != hybrid_cuda: {f}")
+    require_launched(nd, ("B6",), "in the dense closure")
+    hubs = hub_slots(st, q)
+    ia = build_index(st, landmark_slots=hubs,
+                     backend="hybrid_cuda")      # also warms cuBLAS
     times = {}
-    for be in ("hybrid", "hybrid_cuda"):
+    for be in ("hybrid", "hybrid_cuda", "dense_cuda"):
         t0 = time.perf_counter()
-        ib = build_index(st, q, backend=be)
+        ib = build_index(st, landmark_slots=hubs, backend=be)
         sync(torch)
         times[be] = time.perf_counter() - t0
         same_index(ia, ib, f"build_index hybrid_cuda != {be}")
-    log(f"closure: multi_bfs(parents=False) hybrid_cuda == hybrid at "
-        f"V={st.capacity} Q={q} ({int(a.supersteps)} supersteps, B1 "
-        f"{n['B1']} / B2 {n['B2']} launches); build_index({q}) hybrid_cuda "
-        f"== hybrid on every array ({times['hybrid_cuda'] * 1e3:.3f} ms vs "
-        f"{times['hybrid'] * 1e3:.3f} ms)")
-    del a, b, ia, ib, st
+    log(f"closure: multi_bfs(parents=False) hybrid_cuda == hybrid == "
+        f"dense_cuda at V={st.capacity} Q={q} ({int(a.supersteps)} "
+        f"supersteps, B1 {n['B1']} / B2 {n['B2']} launches, B6 "
+        f"{nd['B6']}); build_index over the {q} highest-degree slots "
+        f"hybrid_cuda == hybrid == dense_cuda on every array "
+        f"({times['hybrid_cuda'] * 1e3:.3f} ms vs "
+        f"{times['hybrid'] * 1e3:.3f} ms vs "
+        f"{times['dense_cuda'] * 1e3:.3f} ms)")
+    del a, b, d, ia, ib, st
 
     n_keys, n_pairs = 1 << COMPLETE_SCALE, COMPLETE_PAIRS
     arrays, _ = graph500_state_arrays(COMPLETE_SCALE, COMPLETE_CAPACITY, rng)
@@ -708,6 +841,86 @@ def phase_main(torch, rng, rounds: int):
     return cur["st"], launches, pair_sets[0], batches[0], deg_src
 
 
+def same_result(got, want, what):
+    for f, x, y in zip(want._fields, got, want):
+        if not x.equal(y):
+            raise AssertionError(f"{what}: {f} differs")
+
+
+def phase_dense(torch, st, deg_src, rng):
+    """The dense engine (B6/B7 on the uint8 view) at full width on the
+    phase-3 end state ``st``: sessions answer as scipy does, and every BFS
+    field equals "hybrid_cuda" on the same pairs."""
+    from repro_torch.core import (bfs, find_slots, get_path_session,
+                                  get_paths_session, multi_bfs)
+
+    n = 1 << SCALE
+    sync(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    view = st.adj
+    sync(torch)
+    view_s = time.perf_counter() - t0
+    view_peak = torch.cuda.max_memory_allocated() - base
+    view_bytes = view.numel() * view.element_size()
+    del view
+
+    def slots(keys):
+        return find_slots(st, torch.tensor(keys, dtype=torch.int32,
+                                           device=st.device))
+
+    launches = dict.fromkeys(counts(), 0)
+    session_s, steps = [], []
+    for r in range(DENSE_ROUNDS):
+        pairs = list(zip(rng.choice(deg_src, QUERIES).tolist(),
+                         rng.integers(0, n, QUERIES).tolist()))
+        sync(torch)
+        t0 = time.perf_counter()
+        out, nr = counted(launches, lambda: get_paths_session(
+            lambda: st, pairs, backend="dense_cuda"))
+        sync(torch)
+        session_s.append(time.perf_counter() - t0)
+        sk, dk = slots([k for k, _ in pairs]), slots([l for _, l in pairs])
+        got = multi_bfs(st, sk, dk, backend="dense_cuda")
+        same_result(got, multi_bfs(st, sk, dk, backend="hybrid_cuda"),
+                    f"dense round {r}: multi_bfs dense_cuda != hybrid_cuda")
+        steps.append(int(got.supersteps))
+        edges = check_answers(st, pairs, out, f"dense round {r}")
+        log(f"dense round {r}: get_paths_session {session_s[-1] * 1e3:.3f} "
+            f"ms ({nr} collects, {steps[-1]} supersteps), found "
+            f"{sum(f for f, _ in out)}/{QUERIES}")
+    k, l = int(rng.choice(deg_src)), int(rng.integers(0, n))
+    sync(torch)
+    t0 = time.perf_counter()
+    pr = counted(launches, lambda: get_path_session(lambda: st, k, l,
+                                                    backend="dense_cuda"))
+    sync(torch)
+    single_s = time.perf_counter() - t0
+    check_answers(st, [(k, l)], [(bool(pr.found),
+                                  pr.keys[:int(pr.length)].tolist())],
+                  "dense single")
+    sk, dk = slots([k]), slots([l])
+    same_result(bfs(st, sk, dk, backend="dense_cuda"),
+                bfs(st, sk, dk, backend="hybrid_cuda"),
+                "dense single: bfs dense_cuda != hybrid_cuda")
+    peak = torch.cuda.max_memory_allocated() - base
+    require_launched(launches, DENSE_KERNELS, "on the dense engine")
+    med = statistics.median
+    log(f"dense view: uint8 [{st.capacity}, {st.capacity}] = "
+        f"{view_bytes / 1e9:.3f} GB built in {view_s * 1e3:.3f} ms (row "
+        f"chunks; {view_peak / 1e9:.3f} GB peak above the start)")
+    log(f"dense engine medians over {DENSE_ROUNDS} rounds: "
+        f"get_paths_session {med(session_s) * 1e3:.3f} ms (Q={QUERIES}; "
+        f"supersteps {steps}), get_path_session {single_s * 1e3:.3f} ms "
+        f"(once, found {bool(pr.found)}); peak {peak / 1e9:.3f} GB above "
+        f"the {base / 1e9:.3f} GB held at the start; every multi_bfs/bfs "
+        f"field equals hybrid_cuda, every answer equals scipy (live edges "
+        f"{edges})")
+    log(f"dense-engine launches: {launches}")
+    return launches, pairs
+
+
 def small_refresh_edge(torch, index, st):
     """Keys (k, l) of an AddE whose refresh stays incremental: k and l are
     alive non-landmarks that reach no landmark, so the backward closures
@@ -732,6 +945,7 @@ def phase_index(torch, st, deg_src, rng):
     from repro_torch.convert import op_batch_from_numpy
     from repro_torch.core import OP_ADD_E, apply_ops_fast
     from repro_torch.index import build_index, reach_session, refresh
+    from repro_torch.index.labels import live_degrees
 
     n = 1 << SCALE
     sync(torch)
@@ -739,12 +953,14 @@ def phase_index(torch, st, deg_src, rng):
     base = torch.cuda.memory_allocated()
     # launches of the build and refreshes, and of the served sessions
     closure, serve = dict.fromkeys(counts(), 0), dict.fromkeys(counts(), 0)
+    hubs = hub_slots(st, INDEX_LANDMARKS)
     t0 = time.perf_counter()
-    index = counted(closure, lambda: build_index(st, INDEX_LANDMARKS))
+    index = counted(closure, lambda: build_index(st, landmark_slots=hubs))
     sync(torch)
     build_s = time.perf_counter() - t0
     build_peak = torch.cuda.max_memory_allocated() - base
-    log(f"index: build_index({INDEX_LANDMARKS}) {build_s * 1e3:.3f} ms, "
+    log(f"index: build_index over the {INDEX_LANDMARKS} highest-degree "
+        f"slots {build_s * 1e3:.3f} ms, "
         f"peak {build_peak / 1e9:.3f} GB above the start; "
         f"labels {tuple(index.out_label.shape)} words, OUT bits "
         f"{int(index.out_label_bits.sum())} / IN "
@@ -774,7 +990,8 @@ def phase_index(torch, st, deg_src, rng):
             raise AssertionError(f"round {r}: a stale index served")
         check_reach(cur["st"], pairs, sres.found, f"index {r} stale")
         t0 = time.perf_counter()
-        index, info = counted(closure, lambda: refresh(index, cur["st"]))
+        index, info = counted(closure, lambda: refresh(
+            index, cur["st"], full_threshold=1.0))
         sync(torch)
         refresh_s.append(time.perf_counter() - t0)
         modes.append(info["mode"])
@@ -790,7 +1007,8 @@ def phase_index(torch, st, deg_src, rng):
     cur["st"], _ = apply_ops_fast(cur["st"], op_batch_from_numpy(
         [OP_ADD_E], [k], [l], [-1], DEVICE))
     t0 = time.perf_counter()
-    index, info = counted(closure, lambda: refresh(index, cur["st"]))
+    index, info = counted(closure, lambda: refresh(index, cur["st"],
+                                                   full_threshold=1.0))
     sync(torch)
     inc_s = time.perf_counter() - t0
     if info["mode"] != "incremental":
@@ -804,12 +1022,35 @@ def phase_index(torch, st, deg_src, rng):
     check_reach(cur["st"], pairs, fres.found, "index incremental")
     sync(torch)
     peak = torch.cuda.max_memory_allocated()
-    require_launched(closure, ("B1", "B2"), "in the build and refreshes")
-    require_launched(serve, ("B4",), "in the index-served sessions")
-    launches = {k: closure[k] + serve[k] for k in closure}
     log(f"index incremental: AddE {k}->{l} (its source reached by {hit} "
         f"landmarks): refresh {inc_s * 1e3:.3f} ms ({info['mode']}, rebuilt "
         f"{info['rebuilt']}); answers equal scipy")
+
+    # one refresh at the default threshold after an equal-mix batch: the
+    # full rebuild a user gets, which re-picks the landmarks in JAX's order
+    # (isolated vertices first); the pinned index stays the one returned
+    torch.cuda.reset_peak_memory_stats()
+    full_base = torch.cuda.memory_allocated()
+    full_st, _ = apply_ops_fast(cur["st"], equal_mix_batch(rng, n, DEVICE))
+    t0 = time.perf_counter()
+    full, finfo = counted(closure, lambda: refresh(index, full_st))
+    sync(torch)
+    full_s = time.perf_counter() - t0
+    full_peak = torch.cuda.max_memory_allocated() - full_base
+    if finfo["mode"] != "full":
+        raise AssertionError(f"refresh at the default threshold took {finfo}")
+    same_index(full, build_index(full_st, index.requested), "full refresh")
+    n_isolated = int((live_degrees(full_st)[full.landmarks.long()] == 0)
+                     .sum())
+    log(f"index full refresh (default threshold, after an equal-mix batch): "
+        f"{full_s * 1e3:.3f} ms, peak {full_peak / 1e9:.3f} GB above the "
+        f"start of the step; equals build_index(state, "
+        f"{index.requested}), whose landmarks are {n_isolated} isolated "
+        f"vertices of {full.num_landmarks}")
+    del full, full_st
+    require_launched(closure, ("B1", "B2"), "in the build and refreshes")
+    require_launched(serve, ("B4",), "in the index-served sessions")
+    launches = {k: closure[k] + serve[k] for k in closure}
     med = statistics.median
     log(f"index medians over {INDEX_ROUNDS} rounds: build_index "
         f"{build_s * 1e3:.3f} ms (once), refresh {med(refresh_s) * 1e3:.3f} "
@@ -817,9 +1058,10 @@ def phase_index(torch, st, deg_src, rng):
         f"ms, stale reach_session {med(stale_s) * 1e3:.3f} ms (Q={QUERIES}); "
         f"peak memory {peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} GB above "
         f"the {base / 1e9:.3f} GB held at the start)")
-    log(f"index-path launches: build and {INDEX_ROUNDS + 1} refreshes "
-        f"{closure}; {2 * INDEX_ROUNDS + 1} sessions {serve}; every refresh equals a full "
-        f"rebuild over its landmarks; every answer equals scipy")
+    log(f"index-path launches: build and {INDEX_ROUNDS + 2} refreshes "
+        f"{closure}; {2 * INDEX_ROUNDS + 1} sessions {serve}; every refresh "
+        f"equals a full rebuild over its landmarks; every answer equals "
+        f"scipy")
     return index, cur["st"], pairs, launches
 
 
@@ -845,7 +1087,8 @@ def _busy_ms(trace_file: Path):
 
 
 def main_path_work(st, pairs, batch):
-    """One batch, one session and one single session on ``st``."""
+    """One batch, one session and one single session on ``st``, and one
+    session on the dense engine."""
     from repro_torch.core import (apply_ops_fast, get_path_session,
                                   get_paths_session)
 
@@ -853,6 +1096,8 @@ def main_path_work(st, pairs, batch):
         "apply_ops_fast": lambda: apply_ops_fast(st, batch),
         "get_paths_session": lambda: get_paths_session(lambda: st, pairs),
         "get_path_session": lambda: get_path_session(lambda: st, *pairs[0]),
+        "get_paths_session_dense": lambda: get_paths_session(
+            lambda: st, pairs, backend="dense_cuda"),
     }
 
 
@@ -861,7 +1106,8 @@ def index_work(index, st, pairs):
     from repro_torch.index import build_index, reach_session
 
     return {
-        "build_index": lambda: build_index(st, INDEX_LANDMARKS),
+        "build_index": lambda: build_index(st,
+                                           landmark_slots=index.landmarks),
         "reach_session": lambda: reach_session(lambda: st, index, pairs),
     }
 
@@ -896,29 +1142,69 @@ def phase_profile(torch, work):
             + "; ".join(f"{k} {v:.3f} ms" for k, v in top))
 
 
+NO_PARENT_CALL = "no one PyTorch call computes reach + min parent"
 KERNEL_META = {  # name, package, wrapper that launches, plain version,
-    #               TPU kernel
+    #               TPU kernel, why no one PyTorch call is timed beside it
     "B1": ("multi_bfs_step_packed", "bfs_multi_step",
            "multi_bfs_step_packed_kernel", "multi_bfs_step_packed_ref",
-           "src/repro/kernels/bfs_multi_step/kernel.py:232"),
+           "src/repro/kernels/bfs_multi_step/kernel.py:232", NO_PARENT_CALL),
     "B2": ("bfs_pull_step", "bfs_pull_step", "bfs_pull_step_rows",
            "bfs_pull_step_ref",
-           "src/repro/kernels/bfs_pull_step/kernel.py:139"),
+           "src/repro/kernels/bfs_pull_step/kernel.py:139", NO_PARENT_CALL),
     "B3": ("bfs_step_packed", "bfs_step", "bfs_step_packed_kernel",
-           "bfs_step_packed_ref", "src/repro/kernels/bfs_step/kernel.py:165"),
+           "bfs_step_packed_ref", "src/repro/kernels/bfs_step/kernel.py:165",
+           NO_PARENT_CALL),
     "B4": ("label_join_packed", "label_join", "label_join_packed",
            "label_join_packed_ref",
-           "src/repro/kernels/label_join/kernel.py:150"),
+           "src/repro/kernels/label_join/kernel.py:150",
+           "no one PyTorch call gives hits and hub together, and torch has "
+           "no popcount"),
+    "B5": ("edge_update_packed", "edge_update", "_launch_packed",
+           "edge_update_packed_ref",
+           "src/repro/kernels/edge_update/kernel.py:137",
+           "index_put_ leaves the order of duplicate targets undefined (the "
+           "last lane must win), and torch has no bit set/clear"),
+    "B6": ("multi_bfs_step", "bfs_multi_step", "multi_bfs_step",
+           "multi_bfs_step_ref",
+           "src/repro/kernels/bfs_multi_step/kernel.py:130",
+           "_int_mm / matmul give the reach but no parent"),
+    "B7": ("bfs_step", "bfs_step", "bfs_step", "bfs_step_ref",
+           "src/repro/kernels/bfs_step/kernel.py:84",
+           "a matrix-vector product gives the reach but no parent"),
     "B8": ("label_join", "label_join", "label_join", "label_join_ref",
-           "src/repro/kernels/label_join/kernel.py:80"),
+           "src/repro/kernels/label_join/kernel.py:80",
+           "no one PyTorch call gives hits and hub together"),
+    "B9": ("edge_update", "edge_update", "_launch_dense", "edge_update_ref",
+           "src/repro/kernels/edge_update/kernel.py:66",
+           "index_put_ leaves the order of duplicate targets undefined (the "
+           "last lane must win)"),
 }
+ADJ_ARG_KERNELS = BFS_KERNELS + DENSE_KERNELS   # argument 1: the adjacency
 
 
-def phase_kernel_times(torch, st, pairs, index, ist, ipairs, launches,
-                       timer):
+def edge_batch_lanes(torch, st, rng):
+    """rows, cols, vals, mask int32[LANES] of one equal-mix batch on
+    ``st``: its AddE (vals 1) and RemE (vals 0) lanes fire where both keys
+    are alive; every other lane is masked (and may carry slot -1)."""
+    from repro_torch.core import OP_ADD_E, OP_REM_E, find_slots
+
+    b = equal_mix_batch(rng, 1 << SCALE, DEVICE)
+    r, c = find_slots(st, b.key1), find_slots(st, b.key2)
+    edge = (b.opcode == OP_ADD_E) | (b.opcode == OP_REM_E)
+    mask = (edge & (r >= 0) & (c >= 0)).to(torch.int32)
+    return r, c, (b.opcode == OP_ADD_E).to(torch.int32), mask
+
+
+def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
+                       launches, timer, rng):
     """Time each kernel on inputs captured from one Q=64 traversal of
-    ``st`` (B1-B3) and one Q=64 probe of ``index`` on ``ist`` (B4); B8,
-    which no path launches, on that probe's label words unpacked."""
+    ``st`` on "hybrid_cuda" over ``pairs`` (B1-B3), the traversal of the
+    last dense-engine session's ``dpairs`` on "dense_cuda" (B6), one
+    single-query traversal on each (B3 and B2, B7), and one Q=64 probe of
+    ``index`` on ``ist`` (B4); B8, which no path launches,
+    on that probe's label words unpacked; B5 and B9, which no path
+    launches either, on ``st``'s words and dense view with one equal-mix
+    batch's edge lanes (timed in place on copies)."""
     import importlib
 
     from repro_torch.core import bfs, find_slots, multi_bfs
@@ -926,19 +1212,20 @@ def phase_kernel_times(torch, st, pairs, index, ist, ipairs, launches,
     from repro_torch.index import query_reach
 
     mods, plain = {}, {}
-    for key, (_, pkg, _, ref_fn, _) in KERNEL_META.items():
+    for key, (_, pkg, _, ref_fn, _, _) in KERNEL_META.items():
         mods[key] = importlib.import_module(f"repro_torch.kernels.{pkg}.ops")
         ref = importlib.import_module(f"repro_torch.kernels.{pkg}.ref")
         plain[key] = getattr(ref, ref_fn)
     captured = {k: [] for k in mods}
     originals = {k: getattr(m, KERNEL_META[k][2]) for k, m in mods.items()}
+    traced = [k for k in mods if k not in EDGE_KERNELS]
 
     def recorder(key):
         def rec(*args):
-            # a BFS kernel's adjacency (argument 1) is the state's and
-            # stays unchanged
+            # a BFS kernel's adjacency (argument 1) is the state's or its
+            # dense view and stays unchanged
             captured[key].append(tuple(
-                a if i == 1 and key in BFS_KERNELS else a.clone()
+                a if i == 1 and key in ADJ_ARG_KERNELS else a.clone()
                 for i, a in enumerate(args)))
             return originals[key](*args)
         return rec
@@ -947,59 +1234,72 @@ def phase_kernel_times(torch, st, pairs, index, ist, ipairs, launches,
         return find_slots(state, torch.tensor(keys, dtype=torch.int32,
                                               device=state.device))
 
-    for k, m in mods.items():
-        setattr(m, KERNEL_META[k][2], recorder(k))
+    for k in traced:
+        setattr(mods[k], KERNEL_META[k][2], recorder(k))
     try:
-        sk = slots(st, [p[0] for p in pairs])
-        multi_bfs(st, sk, slots(st, [p[1] for p in pairs]),
-                  backend="hybrid_cuda")
-        # one single-query traversal to the end: B3 pushes, then B2 pulls
-        bfs(st, sk[:1], -1, backend="hybrid_cuda")
+        for be, ps in (("hybrid_cuda", pairs), ("dense_cuda", dpairs)):
+            sk = slots(st, [p[0] for p in ps])
+            dk = slots(st, [p[1] for p in ps])
+            multi_bfs(st, sk, dk, backend=be)
+            # one single-query traversal to the end (B3 pushes, then B2
+            # pulls; B7 pushes throughout)
+            bfs(st, sk[:1], -1, backend=be)
         query_reach(index, slots(ist, [p[0] for p in ipairs]),
                     slots(ist, [p[1] for p in ipairs]))
     finally:
-        for k, m in mods.items():
-            setattr(m, KERNEL_META[k][2], originals[k])
+        for k in traced:
+            setattr(mods[k], KERNEL_META[k][2], originals[k])
     captured["B8"] = [tuple(unpack_bits(a, index.num_landmarks)
                             .to(torch.int32) for a in c)
                       for c in captured["B4"]]
+    lanes = edge_batch_lanes(torch, st, rng)
+    captured["B5"] = [(st.adj_packed, st.ecnt) + lanes]
+    captured["B9"] = [(captured["B6"][0][1], st.ecnt) + lanes]
     sync(torch)
 
     out = []
     for key, calls in captured.items():
-        name, pkg, _, _, replaces = KERNEL_META[key]
+        name, pkg, _, _, replaces, no_library = KERNEL_META[key]
+        if not calls:
+            raise AssertionError(f"{name} ({key}): no launch captured")
         kern = originals[key]
+        # the edge writes are checked through their copying wrappers and
+        # timed in place
+        check = getattr(mods[key], name) if key in EDGE_KERNELS else kern
         ms, dms, pms, bms, bys, err = [], [], [], [], [], 0
         for args in calls:
-            got = kern(*args)
-            want = plain[key](*args)
-            for x, y in zip(got, want):
-                if not torch.equal(x, y):
-                    raise AssertionError(f"{name}: kernel != plain at full "
-                                         f"size")
-            err = max(err, max(int((x.to(torch.int64) - y.to(torch.int64))
-                                   .abs().max()) for x, y in zip(got, want)))
+            got, want = check(*args), plain[key](*args)
+            same(got, want, f"{name}: kernel != plain at full size")
+            err = max(err, max_abs_err(torch, got, want))
+            nbytes, nops, peak = _work(torch, key, args, want)
+            del got, want
+            if key in EDGE_KERNELS:
+                args = (args[0].clone(), args[1].clone()) + tuple(args[2:])
             ms.append(timer.ms(lambda: kern(*args), 20))
             dms.append(timer.device_ms(lambda: kern(*args), 20))
             pms.append(timer.ms(lambda: plain[key](*args), 2))
-            nbytes, nops = _work(torch, key, args, want)
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / ALU_OPS_PER_S
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / peak
             bms.append(max(t_bytes, t_ops) * 1e3)
             bys.append("bytes" if t_bytes >= t_ops else "operations")
+            del args
         shapes = sorted({tuple(tuple(a.shape) for a in c[:2]) for c in calls})
-        dev = (f"{statistics.mean(dms):.4f} ms" if None not in dms
-               else "not measured")
+        # a trace may come back without device events: average the others
+        traced_ms = [d for d in dms if d is not None]
+        dev_ms = statistics.mean(traced_ms) if traced_ms else None
+        dev = (f"{dev_ms:.4f} ms over {len(traced_ms)} of {len(dms)} "
+               f"launches" if traced_ms else "not measured")
         log(f"{name} ({key}): {len(calls)} captured launches at shapes "
             f"{shapes}: kernel {statistics.mean(ms):.4f} ms/launch (CUDA "
             f"events; its kernels' device time {dev}), plain "
             f"{statistics.mean(pms):.3f} ms, bound {statistics.mean(bms):.6f}"
-            f" ms ({max(set(bys), key=bys.count)})")
+            f" ms ({max(set(bys), key=bys.count)}); library_ms null: "
+            f"{no_library}")
         out.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/{pkg}/kernel.cu",
             "replaces": replaces, "launches": launches[key],
             "max_abs_err": err, "ms": statistics.mean(ms),
-            "device_ms": None if None in dms else statistics.mean(dms),
+            "device_ms": dev_ms,
             "plain_ms": statistics.mean(pms),
             "bound_ms": statistics.mean(bms),
             "bound_by": max(set(bys), key=bys.count), "library_ms": None,
@@ -1007,27 +1307,52 @@ def phase_kernel_times(torch, st, pairs, index, ist, ipairs, launches,
     return out
 
 
+def max_abs_err(torch, got, want, chunk=1 << 26):
+    """Largest |got - want| over the outputs, in int64 over chunks of
+    ``chunk`` elements (B9's outputs are the 4.85 GB dense view)."""
+    err = 0
+    for x, y in zip(got, want, strict=True):
+        x, y = x.flatten(), y.flatten()
+        for i in range(0, x.numel(), chunk):
+            d = x[i:i + chunk].to(torch.int64) - y[i:i + chunk].to(torch.int64)
+            err = max(err, int(d.abs().max()))
+    return err
+
+
 def _work(torch, key, args, want):
-    """(bytes, 32-bit word operations) one call needs on these inputs: each
-    input byte read once, each output written once; for the adjacency only
-    the words the data requires, and for the IN labels only the words
-    whose OUT word is nonzero."""
+    """(bytes, operations, peak operations/s) one call needs on these
+    inputs: each input byte read once, each output written once; for the
+    adjacency only the rows or words the data requires, for the IN labels
+    only the words whose OUT word is nonzero, and for the edge writes only
+    the touched cells or words and ecnt rows."""
     if key in ("B4", "B8"):
         out_rows, _ = args
         need_in = int((out_rows != 0).sum())
         outs = sum(t.numel() * t.element_size() for t in want)
         nbytes = out_rows.numel() * 4 + need_in * 4 + outs
-        return nbytes, (2 if key == "B4" else 1) * need_in
-    if key in ("B1", "B3"):
+        return nbytes, (2 if key == "B4" else 1) * need_in, ALU_OPS_PER_S
+    if key in EDGE_KERNELS:
+        adj, _, rows, cols, _, mask = args
+        fire = mask > 0
+        r, c = rows[fire].long(), cols[fire].long()
+        n_cols = adj.shape[1]
+        cells = (r * n_cols + c // 32 if key == "B5" else r * n_cols + c)
+        touched = int(torch.unique(cells).numel())
+        nbytes = (4 * 4 * rows.numel() + 2 * adj.element_size() * touched
+                  + 2 * 4 * int(torch.unique(r).numel()))
+        return nbytes, 2 * int(fire.sum()), ALU_OPS_PER_S
+    if key in ADJ_ARG_KERNELS and key != "B2":
         fr, adj, alive, vis = args
         fr2 = fr.reshape(-1, fr.shape[-1])
-        w = adj.shape[1]
         rows = int(fr2.any(0).sum())
-        per_q = int(fr2.sum())
         outs = sum(t.numel() * t.element_size() for t in want)
-        nbytes = (fr.numel() + rows * w * 4 + alive.numel() + vis.numel()
+        row_bytes = adj.shape[1] * adj.element_size()
+        nbytes = (fr.numel() + rows * row_bytes + alive.numel() + vis.numel()
                   + outs)
-        return nbytes, 2 * per_q * w
+        if key in DENSE_KERNELS:   # a MAC per (query, active row, column)
+            return (nbytes, 2 * fr2.shape[0] * rows * adj.shape[1],
+                    INT8_OPS_PER_S)
+        return nbytes, 2 * int(fr2.sum()) * adj.shape[1], ALU_OPS_PER_S
     fw, adj_in, alive, vis = args
     new, parent = want
     w = adj_in.shape[1]
@@ -1036,7 +1361,7 @@ def _work(torch, key, args, want):
     words = int(need.amax(0).sum()) if need.numel() else 0
     outs = new.numel() + parent.numel() * 4
     nbytes = fw.numel() * 4 + words * 4 + alive.numel() + vis.numel() + outs
-    return nbytes, 2 * int(need.sum())
+    return nbytes, 2 * int(need.sum()), ALU_OPS_PER_S
 
 
 def main(argv=None) -> int:
@@ -1057,21 +1382,27 @@ def main(argv=None) -> int:
     # the index phases draw from a stream of their own, so the other
     # phases' graphs and batches do not depend on them
     index_rng = np.random.default_rng([args.seed, 1])
+    # and so do the dense engine's and the edge writes' draws
+    dense_rng = np.random.default_rng([args.seed, 2])
     t_all = time.perf_counter()
     card = phase_device(torch)
-    phase_kernels(torch, rng)
+    phase_kernels(torch, rng, dense_rng)
     phase_index_kernels(torch, index_rng)
     phase_hybrid(torch, rng)
     phase_closure(torch, index_rng)
     st, launches, pairs, batch, deg_src = phase_main(torch, rng, ROUNDS)
+    dlaunches, dpairs = phase_dense(torch, st, deg_src, dense_rng)
     phase_profile(torch, main_path_work(st, pairs, batch))
     index, ist, ipairs, ilaunches = phase_index(torch, st, deg_src,
                                                 index_rng)
     phase_profile(torch, index_work(index, ist, ipairs))
+    # each kernel's launches on the path that runs it: B1-B3 the main
+    # path, B6/B7 the dense engine, B4/B8 the index; no path runs B5/B9
+    launches.update({k: dlaunches[k] for k in DENSE_KERNELS + EDGE_KERNELS})
     launches.update({k: ilaunches[k] for k in ("B4", "B8")})
     timer = Timer(torch)
-    kernels = phase_kernel_times(torch, st, pairs, index, ist, ipairs,
-                                 launches, timer)
+    kernels = phase_kernel_times(torch, st, pairs, dpairs, index, ist,
+                                 ipairs, launches, timer, dense_rng)
     log(f"card: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

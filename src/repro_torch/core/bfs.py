@@ -15,7 +15,9 @@ Backends (every one gives bit-identical results):
                  (Beamer's alpha/beta switch), plain torch
   "packed_cuda"  push through the CUDA kernels (B3 single, B1 multi)
   "hybrid_cuda"  the hybrid switch with push = B3/B1 and pull = B2
-  "pallas"       the dense kernels B6/B7 are not ported yet (raises)
+  "dense_cuda"   push through the dense CUDA kernels (B7 single, B6 multi)
+                 on the unpacked uint8 [V, V] view (JAX "pallas"), built
+                 once per call outside the superstep loop
 
 ``backend=None`` resolves through ``default_backend``: the kernel hybrid on
 a CUDA state, the plain hybrid on a CPU state; ``REPRO_TORCH_BFS_BACKEND``
@@ -29,12 +31,13 @@ each superstep is one ``bfs.superstep`` span with its direction tag and
 popcounts.
 
 Closure mode (``parents=False``, the index builds) keeps only ``new``. On
-the kernel backends each superstep runs the B1 push or the B2 pull and
-drops their parents, where JAX keeps closure mode in plain jnp: XLA fuses
-its where+reduce, but eager torch would materialize a [Q, V, W] word
-volume (tens of GB at the index's Q), so on the card the kernels are what
-keeps the closure inside memory. The plain backends keep the plain
-closure.
+the kernel backends each superstep runs the B1 push, the B2 pull or the
+B6 dense push and drops their parents, where JAX keeps closure mode in
+plain jnp: XLA fuses its where+reduce (or, for "pallas", multiplies by a
+float32 [V, V] operand, 19.4 GB at V = 69,632), but eager torch would
+materialize a [Q, V, W] word volume (tens of GB at the index's Q), so on
+the card the kernels are what keeps the closure inside memory. The plain
+backends keep the plain closure.
 """
 from __future__ import annotations
 
@@ -58,10 +61,12 @@ from repro_torch.core.graph import (
 from repro_torch.obs import trace as _trace
 from repro_torch.obs.metrics import global_registry as _obs_registry
 
-BACKENDS = ("dense", "packed", "hybrid", "packed_cuda", "hybrid_cuda")
+BACKENDS = ("dense", "packed", "hybrid", "packed_cuda", "hybrid_cuda",
+            "dense_cuda")
 PACKED_BACKENDS = ("packed", "packed_cuda")
+DENSE_BACKENDS = ("dense", "dense_cuda")
 HYBRID_BACKENDS = ("hybrid", "hybrid_cuda")
-CUDA_BACKENDS = ("packed_cuda", "hybrid_cuda")
+CUDA_BACKENDS = ("packed_cuda", "hybrid_cuda", "dense_cuda")
 
 # Beamer-style switch: go bottom-up when |frontier| * alpha >= |unvisited|,
 # return top-down once |frontier| < V / beta (the JAX package's defaults).
@@ -84,10 +89,6 @@ def default_backend(device=None) -> str:
 
 def _resolve_backend(backend: str | None, device) -> str:
     backend = default_backend(device) if backend is None else backend
-    if backend == "pallas":
-        raise NotImplementedError(
-            "the dense 'pallas' backend needs kernels B6/B7 "
-            "(ROADMAP.md queue B6, B7), which are not ported yet")
     if backend not in BACKENDS:
         raise ValueError(f"unknown bfs backend {backend!r}")
     return backend
@@ -208,6 +209,10 @@ def _step_fns(backend: str, multi: bool):
         if multi:
             return multi_bfs_step_packed_jnp, multi_bfs_step_pull_jnp
         return bfs_step_packed_jnp, bfs_step_pull_jnp
+    if backend == "dense_cuda":
+        from repro_torch.kernels.bfs_multi_step.ops import multi_bfs_step
+        from repro_torch.kernels.bfs_step.ops import bfs_step
+        return (multi_bfs_step if multi else bfs_step), None
     from repro_torch.kernels.bfs_multi_step.ops import multi_bfs_step_packed
     from repro_torch.kernels.bfs_pull_step.ops import (bfs_pull_step,
                                                        multi_bfs_pull_step)
@@ -254,15 +259,13 @@ def _run(state: GraphState, src, dst, backend: str, parents: bool,
     qi = torch.arange(q, device=dev)
     hybrid = backend in HYBRID_BACKENDS
     push_fn, pull_fn = _step_fns(backend, multi)
-    if backend == "dense":
-        adj_arg = state.adj
-    else:
-        adj_arg = state.adj_packed
+    # the dense backends get the unpacked view, built once per call
+    adj_arg = state.adj if backend in DENSE_BACKENDS else state.adj_packed
     kernel_closure = not parents and backend in CUDA_BACKENDS
     if not parents and not kernel_closure:
         # plain closure mode, as in JAX; the expansion operand is hoisted
         # out of the loop
-        closure_op = (traversable(state.adj, alive).to(torch.float32)
+        closure_op = (traversable(adj_arg, alive).to(torch.float32)
                       if backend == "dense" else
                       traversable_packed(state.adj_packed, alive,
                                          pack_bits(alive)))
@@ -371,8 +374,8 @@ def multi_bfs(state: GraphState, src_slots, dst_slots,
     frontier (their outputs freeze). ``dst_slots[q] < 0`` explores query
     q's whole reachable set. ``parents=False`` is closure-only mode:
     ``parent`` comes back all -1, everything else is unchanged; the kernel
-    backends run it through B1/B2 and drop their parents, the plain
-    backends in plain torch. The hybrid backends pick push or pull
+    backends run it through B1/B2 (B6 on "dense_cuda") and drop their
+    parents, the plain backends in plain torch. The hybrid backends pick push or pull
     per superstep from the active queries' pooled popcounts."""
     backend = _resolve_backend(backend, state.device)
     src = _as_slots(src_slots, state.device)
@@ -384,7 +387,8 @@ def bfs(state: GraphState, src_slot, dst_slot, backend: str | None = None,
         alpha: int = DEFAULT_ALPHA, beta: int = DEFAULT_BETA) -> BFSResult:
     """BFS from ``src_slot`` with early exit at ``dst_slot`` (< 0 explores
     the whole reachable set). Traversable edge: adj[u, w] & alive[u] &
-    alive[w]. On "packed_cuda"/"hybrid_cuda" the push runs B3."""
+    alive[w]. On "packed_cuda"/"hybrid_cuda" the push runs B3, on
+    "dense_cuda" B7."""
     backend = _resolve_backend(backend, state.device)
     src = _as_slots(src_slot, state.device)
     dst = _as_slots(dst_slot, state.device)

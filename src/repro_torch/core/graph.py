@@ -90,6 +90,22 @@ def unpack_bits(words: torch.Tensor, v: int) -> torch.Tensor:
     return flat[..., :v].to(torch.bool)
 
 
+_UNPACK_BUDGET = 256 * 1024 * 1024   # bytes of one chunk's int32 transient
+
+
+def unpack_dense(words: torch.Tensor, v: int) -> torch.Tensor:
+    """``unpack_bits(words, v)`` as uint8[R, v], unpacked in row chunks
+    into one preallocated result, so the transient stays near
+    ``_UNPACK_BUDGET`` bytes instead of an int32 [R, W, 32] volume (19.4 GB
+    at V = 69,632, for a 4.85 GB result)."""
+    rows = words.shape[0]
+    out = torch.empty((rows, v), dtype=torch.uint8, device=words.device)
+    chunk = max(1, _UNPACK_BUDGET // (4 * WORD_BITS * max(1, words.shape[1])))
+    for r0 in range(0, rows, chunk):
+        out[r0:r0 + chunk] = unpack_bits(words[r0:r0 + chunk], v)
+    return out
+
+
 def pack_transpose(words: torch.Tensor, v: int) -> torch.Tensor:
     """Packed transpose int32[V, W] -> int32[V, W], bit (r, c) -> (c, r).
     A [V, V] transient: for oracles and checks, never on the hot path."""
@@ -238,13 +254,14 @@ class GraphState(NamedTuple):
 
     @property
     def adj(self) -> torch.Tensor:
-        """Dense uint8[V, V] adjacency view (unpacked on demand)."""
-        return unpack_bits(self.adj_packed, self.capacity).to(torch.uint8)
+        """Dense uint8[V, V] adjacency view, unpacked on demand in row
+        chunks (``unpack_dense``); not cached."""
+        return unpack_dense(self.adj_packed, self.capacity)
 
     @property
     def adj_in(self) -> torch.Tensor:
         """Dense uint8[V, V] in-adjacency view: adj_in[v, w] = adj[w, v]."""
-        return unpack_bits(self.adj_in_packed, self.capacity).to(torch.uint8)
+        return unpack_dense(self.adj_in_packed, self.capacity)
 
     @property
     def alive_words(self) -> torch.Tensor:

@@ -2,7 +2,8 @@
 port of ``repro.index.labels`` (DESIGN.md §9).
 
 A ``ReachIndex`` precomputes reachability through L *landmark* vertices,
-picked by degree (hubs first):
+picked by degree in the JAX package's order (``pick_landmarks``) or pinned
+by the caller:
 
   fwd[i, v] = landmark i reaches v      (forward closure)
   bwd[i, v] = v reaches landmark i      (backward closure)
@@ -10,8 +11,8 @@ picked by degree (hubs first):
 Both closures are one closure-mode ``multi_bfs`` each with Q = L sources:
 on the graph for ``fwd``, and on the maintained in-adjacency for ``bwd``
 (``_reversed``, an O(1) field swap). On the kernel backends the closures
-run through B1/B2 (see ``core/bfs.py``), so the build never materializes
-a [Q, V, W] volume.
+run through B1/B2 (B6 on "dense_cuda"; see ``core/bfs.py``), so the
+build never materializes a [Q, V, W] volume.
 
 The labels are the transposed closures with canonical-hub pruning: entry
 (v, k) is dropped when an earlier landmark j < k already covers the pair
@@ -116,21 +117,11 @@ def coverage_complete(landmarks, alive, capacity: int) -> bool:
     return bool(np.all(~_host(alive) | is_lm))
 
 
-def pick_landmarks(state: GraphState,
-                   num_landmarks: int | None = None) -> np.ndarray:
-    """Degree-ordered landmark selection (hubs first, ties by slot), alive
-    vertices only; ``None`` selects every alive vertex (the complete
-    index).
-
-    Degree = live out-degree + live in-degree, each the popcount of the
-    ``traversable_packed`` rows of one mirror (equal to the JAX package's
-    row and column sums of the alive-masked dense matrix by the transpose
-    invariant), in row chunks: no [V, V] unpack.
-
-    The order differs from the JAX package's in one place: JAX negates an
-    unsigned degree, which wraps and puts alive vertices of degree 0 FIRST
-    (ROADMAP.md queue C). Here they come last, so a landmark budget goes to
-    the hubs. Where every alive vertex has an edge the orders agree."""
+def live_degrees(state: GraphState) -> torch.Tensor:
+    """int64[V]: live out-degree + live in-degree of every slot, each the
+    popcount of the ``traversable_packed`` rows of one mirror (equal to the
+    JAX package's row and column sums of the alive-masked dense matrix by
+    the transpose invariant), in row chunks: no [V, V] unpack."""
     _require_dense(state)
     alive = state.valive
     aw = pack_bits(alive)
@@ -141,10 +132,26 @@ def pick_landmarks(state: GraphState,
         for mirror in (state.adj_packed, state.adj_in_packed):
             live = traversable_packed(mirror[r0:r1], alive[r0:r1], aw)
             deg[r0:r1] += popcount(live).sum(1)
-    deg = deg.cpu().numpy()
-    alive = alive.cpu().numpy()
+    return deg
+
+
+def pick_landmarks(state: GraphState,
+                   num_landmarks: int | None = None) -> np.ndarray:
+    """The JAX package's landmark order, alive vertices only; ``None``
+    selects every alive vertex (the complete index).
+
+    JAX sorts by the negated degree (``live_degrees``) with ties by slot,
+    but its degree is an unsigned sum, so the negation wraps: alive
+    vertices of degree 0 come FIRST (slot ascending), then the rest by
+    degree descending, ties by slot. That is a fault of the reference
+    (ROADMAP.md queue C), matched here so that both packages pick the same
+    landmarks: a budget smaller than the number of isolated vertices picks
+    only vertices that reach nothing. Callers that want hubs pass
+    ``landmark_slots`` to ``build_index``."""
+    deg = live_degrees(state).cpu().numpy().astype(np.uint64)
+    alive = state.valive.cpu().numpy()
     slots = np.arange(alive.shape[0])
-    order = np.lexsort((slots, -deg))          # degree desc, slot asc
+    order = np.lexsort((slots, -deg))          # the wrap: 0 sorts first
     order = order[alive[order]]                # alive only
     if num_landmarks is not None:
         order = order[: max(0, int(num_landmarks))]

@@ -24,7 +24,8 @@ import torch
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
-PACKAGES = ("bfs_multi_step", "bfs_pull_step", "bfs_step", "label_join")
+PACKAGES = ("bfs_multi_step", "bfs_pull_step", "bfs_step", "edge_update",
+            "label_join")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

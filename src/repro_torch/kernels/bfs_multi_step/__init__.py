@@ -1,1 +1,2 @@
-"""B1: the packed Q-frontier push superstep (kernel.cu, ref.py, ops.py)."""
+"""B1 and B6: the packed and the dense Q-frontier push supersteps
+(kernel.cu with push.cuh and dense.cuh, ref.py, ops.py)."""

@@ -1,20 +1,24 @@
-"""Wrappers of the B1 push kernel (bfs_multi_step/kernel.cu).
+"""Wrappers of the B1 (packed) and B6 (dense) push kernels
+(bfs_multi_step/kernel.cu).
 
-``multi_bfs_step_packed_kernel`` keeps the kernel's full contract (see
-``ref.py``): on a CUDA tensor it launches the kernel, on a CPU tensor it
-runs the plain version, on anything else it raises. ``launches`` counts
-kernel launches. ``multi_bfs_step_packed`` is the bool-interface drop-in
-for ``core.bfs.multi_bfs_step_packed_jnp``. No query or column padding is
-needed: the kernel takes any Q and masks columns >= V itself.
+``multi_bfs_step_packed_kernel`` (B1) and ``multi_bfs_step`` (B6) keep the
+kernels' contracts (see ``ref.py``): on a CUDA tensor each launches its
+kernel, on a CPU tensor it runs the plain version, on anything else it
+raises. ``launches`` (B1) and ``dense_launches`` (B6) count kernel
+launches. ``multi_bfs_step_packed`` is the bool-interface drop-in for
+``core.bfs.multi_bfs_step_packed_jnp``. No query or column padding is
+needed: the kernels take any Q and mask columns >= V themselves.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.bfs_multi_step.ref import multi_bfs_step_packed_ref
+from repro_torch.kernels.bfs_multi_step.ref import (multi_bfs_step_packed_ref,
+                                                    multi_bfs_step_ref)
 
 launches = 0
+dense_launches = 0
 
 
 def _launch(frontiers, adj_packed, alive, visited):
@@ -58,3 +62,36 @@ def multi_bfs_step_packed(frontiers, adj_packed, alive, visited):
     new, parent, _ = multi_bfs_step_packed_kernel(frontiers, adj_packed,
                                                   alive, visited)
     return new, parent
+
+
+def _launch_dense(frontiers, adj, alive, visited):
+    global dense_launches
+    q, rows = frontiers.shape
+    v = adj.shape[1]
+    dev = adj.device
+    for t, name, dt, shape in ((frontiers, "frontiers", torch.bool, (q, rows)),
+                               (adj, "adj", torch.uint8, (rows, v)),
+                               (alive, "alive", torch.bool, (v,)),
+                               (visited, "visited", torch.bool, (q, v))):
+        _build.check_tensor(t, name, dt, shape, dev)
+    new = torch.empty((q, v), dtype=torch.bool, device=dev)
+    parent = torch.empty((q, v), dtype=torch.int32, device=dev)
+    groups = -(-q // 64)
+    qmask = torch.empty((groups, rows), dtype=torch.int64, device=dev)
+    active = torch.empty((groups, -(-rows // 32)), dtype=torch.int32,
+                         device=dev)
+    _build.launch("bfs_multi_step", "multi_bfs_step_launch", dev, frontiers,
+                  adj, alive, visited, new, parent, qmask, active, q, rows, v)
+    dense_launches += 1
+    return new, parent
+
+
+def multi_bfs_step(frontiers, adj, alive, visited):
+    """B6, the drop-in for ``core.bfs.multi_bfs_step_jnp`` on the dense
+    view: frontiers bool[Q, R], adj uint8[R, V], alive bool[V], visited
+    bool[Q, V] -> (new bool[Q, V], parent int32[Q, V] slice-relative)."""
+    if adj.is_cuda:
+        return _launch_dense(frontiers, adj, alive, visited)
+    if adj.device.type == "cpu":
+        return multi_bfs_step_ref(frontiers, adj, alive, visited)
+    raise ValueError(f"no B6 kernel for device {adj.device}")

@@ -1,4 +1,7 @@
-"""Plain PyTorch version of the B1 push superstep (the kernel's contract).
+"""Plain PyTorch versions of the B1 (packed) and B6 (dense) push supersteps
+(the kernels' contracts).
+
+B1:
 
 frontiers bool[Q, R], adj_packed int32[R, W] (R == V or a row slice),
 alive bool[V], visited bool[Q, V] with V <= 32 * W
@@ -10,8 +13,16 @@ alive bool[V], visited bool[Q, V] with V <= 32 * W
   parent[q, c]   = smallest frontier row of q (relative to the slice) with
                    bit c set, where new; -1 elsewhere
 
-Only frontier rows are read, in ascending chunks sized so the transient
-stays under ``budget`` bytes, so the function also runs at full size.
+B6: frontiers bool[Q, R], adj uint8[R, V] (R == V or a row slice),
+alive bool[V], visited bool[Q, V] -> (new bool[Q, V], parent int32[Q, V]):
+
+  new[q, c]      = (some frontier row r of q has adj[r, c] != 0)
+                   & alive[c] & ~visited[q, c]
+  parent[q, c]   = the smallest such r (relative to the slice), where new;
+                   -1 elsewhere
+
+Both read only frontier rows, in ascending chunks sized so the transient
+stays under ``budget`` bytes, so they also run at full size.
 """
 from __future__ import annotations
 
@@ -45,3 +56,22 @@ def multi_bfs_step_packed_ref(frontiers, adj_packed, alive, visited,
         parent = torch.minimum(parent, cand)
     new = unpack_bits(reach, v) & alive[None, :] & ~visited
     return new, torch.where(new, parent, -1), reach
+
+
+def multi_bfs_step_ref(frontiers, adj, alive, visited,
+                       budget: int = _BUDGET):
+    q = frontiers.shape[0]
+    v = adj.shape[1]
+    parent = torch.full((q, v), INT32_MAX, dtype=torch.int32,
+                        device=adj.device)
+    rows = torch.nonzero(frontiers.any(0)).flatten()   # ascending
+    chunk = max(1, budget // max(1, q * v))
+    for i in range(0, rows.numel(), chunk):
+        rc = rows[i:i + chunk]
+        # repro-lint: allow(traversable-predicate) — raw rows; `new` masks
+        m = frontiers[:, rc, None] & (adj[rc] != 0)[None]    # [Q, c, V]
+        first = rc[m.to(torch.int8).argmax(1)]          # first = smallest row
+        cand = torch.where(m.any(1), first.to(torch.int32), INT32_MAX)
+        parent = torch.minimum(parent, cand)
+    new = (parent != INT32_MAX) & alive[None, :] & ~visited
+    return new, torch.where(new, parent, -1)

@@ -1,1 +1,2 @@
-"""B3: the packed single-frontier push superstep (kernel.cu, ref.py, ops.py)."""
+"""B3 and B7: the packed and the dense single-frontier push supersteps
+(kernel.cu, ref.py, ops.py)."""

@@ -1,8 +1,9 @@
 """The port's BFS (repro_torch.core.bfs) against the JAX package's: every
 result field (found, parent, dist, expanded, steps, supersteps), bit for
 bit, on the port's "hybrid", "packed", "dense" and "hybrid_cuda" (plain
-versions on the CPU) against JAX "hybrid" and "hybrid_pallas"; alpha/beta
-are set so that both directions run."""
+versions on the CPU) against JAX "hybrid" and "hybrid_pallas" (alpha/beta
+set so that both directions run), and on "dense_cuda" against JAX
+"pallas" (interpret mode, so on a graph of capacity 48)."""
 import json
 
 import jax.numpy as jnp
@@ -126,7 +127,32 @@ def test_default_backend_follows_device_and_own_env(graph, monkeypatch):
     assert T.default_backend("cuda") == "hybrid_cuda"
     monkeypatch.setenv(BACKEND_ENV, "dense")
     assert T.default_backend("cuda") == "dense"
-    with pytest.raises(NotImplementedError, match="B6"):
+    with pytest.raises(ValueError, match="pallas"):    # JAX's name only
         T.bfs(TS, 1, 2, backend="pallas")
     with pytest.raises(ValueError):
         T.multi_bfs(TS, SRC, DST, backend="nope")
+
+
+@pytest.fixture(scope="module")
+def small_graph():
+    return _graph(v=48, nv=46, ne=120, seed=3)
+
+
+@pytest.mark.parametrize("parents", [True, False])
+def test_multi_bfs_dense_cuda_matches_jax_pallas(small_graph, parents):
+    G, TS, SRC, DST = small_graph
+    SRC, DST = SRC % 48, DST % 48
+    SRC[3], DST[4] = -1, -1
+    want = J.multi_bfs(G, jnp.asarray(SRC), jnp.asarray(DST),
+                       backend="pallas", parents=parents)
+    got = T.multi_bfs(TS, SRC, DST, backend="dense_cuda", parents=parents)
+    _equal(want, got, f"dense_cuda parents={parents}")
+    assert int(got.supersteps) > 2
+
+
+def test_single_bfs_dense_cuda_matches_jax_pallas(small_graph):
+    G, TS, _, _ = small_graph
+    for s, d in ((1, 40), (2, -1), (3, 3), (-1, 4), (29, 5)):
+        want = J.bfs(G, s, d, backend="pallas")
+        got = T.bfs(TS, s, d, backend="dense_cuda")
+        _equal(want, got, f"dense_cuda {s}->{d}")

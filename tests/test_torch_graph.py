@@ -117,6 +117,18 @@ def test_state_helpers_match_jax():
         np.testing.assert_array_equal(a, np.asarray(b))
 
 
+@pytest.mark.parametrize("budget", [1, 4 * 32 * 7 * 5, 1 << 30])
+def test_dense_view_is_built_in_row_chunks(monkeypatch, budget):
+    """The dense views unpack in row chunks into one uint8 result (one row
+    per chunk, 5 rows, or all at once): the same bits as JAX's views."""
+    g = _jax_state()
+    t = state_from_numpy(*[np.asarray(x) for x in g], device="cpu")
+    monkeypatch.setattr(tg, "_UNPACK_BUDGET", budget)
+    for view, want in ((t.adj, g.adj), (t.adj_in, g.adj_in)):
+        assert view.dtype == torch.uint8 and view.is_contiguous()
+        np.testing.assert_array_equal(view.numpy(), np.asarray(want))
+
+
 def test_transpose_invariant_catches_a_missing_mirror_bit():
     g = _jax_state(v=70, nv=60, ne=200)
     t = state_from_numpy(*[np.asarray(x) for x in g], device="cpu")

@@ -42,6 +42,7 @@ def test_importing_the_port_loads_no_jax_module():
         "import repro_torch.kernels.bfs_multi_step.ops\n"
         "import repro_torch.kernels.bfs_pull_step.ops\n"
         "import repro_torch.kernels.bfs_step.ops\n"
+        "import repro_torch.kernels.edge_update.ops\n"
         "import repro_torch.kernels.label_join.ops\n"
         "import repro_torch.index\n"
         "import repro_torch.kernels._build\n"

@@ -2,9 +2,10 @@
 package's (repro.index), bit for bit (tolerance 0: every output is an
 integer or a bool), on the CPU:
 
-  * ``pick_landmarks`` order, and every ``ReachIndex`` array of
-    ``build_index`` for complete, partial (0/1/3 landmarks) and pinned
-    landmark lists;
+  * ``pick_landmarks`` order (isolated vertices first, as JAX's), and
+    every ``ReachIndex`` array of ``build_index`` for complete, partial
+    (0/1/3 landmarks) and pinned landmark lists, with and without isolated
+    vertices, and on "dense_cuda" against JAX "pallas";
   * ``query_reach`` / ``reach_sets`` / ``reach_counts`` on one index fed to
     both packages through ``convert.index_from_numpy``, JAX on "jnp" and
     "pallas" (interpret mode), the port on every join backend (the
@@ -31,6 +32,7 @@ from repro.index.labels import pick_landmarks as jax_pick_landmarks
 import repro_torch.core as T
 import repro_torch.index as TI
 from repro_torch.convert import index_from_numpy, state_from_numpy
+from repro_torch.index.labels import live_degrees
 from repro_torch.index.query import JOIN_BACKENDS
 from repro_torch.obs import trace
 from repro_torch.obs.metrics import global_registry
@@ -45,7 +47,7 @@ def _ops(rng, loops=True):
     ops += [(J.OP_ADD_E, int(a), int(b))
             for a, b in rng.integers(0, NV, (80, 2))]
     ops += [(J.OP_ADD_E, 31, 63), (J.OP_ADD_E, 63, 5), (J.OP_ADD_E, 2, 31)]
-    if loops:   # every vertex has an edge: both packages pick alike
+    if loops:   # self-loops: every vertex has an edge
         ops += [(J.OP_ADD_E, k, k) for k in range(NV)]
     return ops
 
@@ -107,9 +109,10 @@ def test_pick_landmarks_matches_jax(graph, num):
 
 
 def test_pick_landmarks_puts_isolated_vertices_last_where_jax_puts_first():
-    """The fault pinned in ROADMAP.md queue C: JAX negates an unsigned
-    degree, so alive vertices of degree 0 lead its order. The port orders
-    them last; the rest of the order is the same."""
+    """On a graph with isolated alive vertices the port picks exactly JAX's
+    order: JAX negates an unsigned degree, which wraps, so the isolated
+    vertices come first (slot ascending), then degree descending, ties by
+    slot (ROADMAP.md queue C: a fault of the reference, matched)."""
     g, t = _graph(seed=1, loops=False)
     alive = np.asarray(g.valive)
     adj = np.asarray(g.adj).astype(np.int64) * (alive[:, None]
@@ -117,20 +120,32 @@ def test_pick_landmarks_puts_isolated_vertices_last_where_jax_puts_first():
     deg = adj.sum(0) + adj.sum(1)
     isolated = np.flatnonzero(alive & (deg == 0))
     assert isolated.size > 0
-    jax_order = jax_pick_landmarks(g, None)
-    port_order = TI.pick_landmarks(t, None)
+    np.testing.assert_array_equal(live_degrees(t).numpy(), deg)
+    for num in (None, 1, isolated.size + 3):
+        want = jax_pick_landmarks(g, num)
+        np.testing.assert_array_equal(TI.pick_landmarks(t, num), want)
+    order = TI.pick_landmarks(t, None)
     k = isolated.size
-    np.testing.assert_array_equal(jax_order[:k], isolated)
-    np.testing.assert_array_equal(port_order[-k:], isolated)
-    np.testing.assert_array_equal(port_order[:-k], jax_order[k:])
-    assert np.all(np.diff(deg[port_order]) <= 0)
+    np.testing.assert_array_equal(order[:k], isolated)
+    assert np.all(np.diff(deg[order[k:]]) <= 0)
 
 
+@pytest.mark.parametrize("loops", [True, False])
 @pytest.mark.parametrize("num", [None, 0, 1, 3])
-def test_build_index_matches_jax(graph, num):
-    g, t = graph
+def test_build_index_matches_jax(graph, num, loops):
+    g, t = graph if loops else _graph(seed=1, loops=False)
     _index_equal(JI.build_index(g, num), TI.build_index(t, num),
                  f"num_landmarks={num}")
+
+
+@pytest.mark.parametrize("num", [None, 3])
+def test_build_index_dense_cuda_matches_jax_pallas(num):
+    """The dense engine's closures (B6 plain version on the CPU) against
+    JAX "pallas", on a graph with isolated vertices."""
+    g, t = _graph(seed=1, loops=False)
+    _index_equal(JI.build_index(g, num, backend="pallas"),
+                 TI.build_index(t, num, backend="dense_cuda"),
+                 f"dense_cuda num_landmarks={num}")
 
 
 def test_build_index_pinned_slots_matches_jax():

@@ -6,6 +6,14 @@ mode and against the JAX ref.py oracles, bit for bit (tolerance 0):
                      including a row slice R < V
   B2 bfs_pull_step   new, parent (global ids), including a row slice
   B3 bfs_step        new, parent and raw reach_words
+  B6 bfs_multi_step  dense: new, parent (slice-relative), including a row
+                     slice R < V
+  B7 bfs_step        dense: new, parent
+  B5 edge_update     packed: adj_packed, ecnt (bit set when vals > 0)
+  B9 edge_update     dense: adj, ecnt (vals cast to uint8); both with
+                     duplicate targets (the last firing lane wins), masked
+                     lanes with out-of-range rows and columns, and V not a
+                     multiple of 8 or 32
   B4 label_join       packed: hits, hub (label words with bit 31 set, all-zero
                       OUT rows)
   B8 label_join       dense: hits, hub on the 0/1 slabs, equal to B4 on the
@@ -21,19 +29,34 @@ import pytest
 import torch
 
 from repro.kernels.bfs_multi_step.kernel import multi_bfs_step_packed_pallas
+from repro.kernels.bfs_multi_step.ops import multi_bfs_step as j_b6
+from repro.kernels.bfs_multi_step.ref import multi_bfs_step_ref as j_b6_ref
 from repro.kernels.bfs_multi_step.ref import multi_bfs_step_packed_ref as j_b1
 from repro.kernels.bfs_pull_step.kernel import bfs_pull_step_pallas
 from repro.kernels.bfs_pull_step.ref import bfs_pull_step_ref as j_b2
 from repro.kernels.bfs_step.kernel import bfs_step_packed_pallas
 from repro.kernels.bfs_step.ops import _pick_tile, _pick_word_tile
 from repro.kernels.bfs_step.ref import bfs_step_packed_ref as j_b3
+from repro.kernels.bfs_step.ops import bfs_step as j_b7
+from repro.kernels.bfs_step.ref import bfs_step_ref as j_b7_ref
+from repro.core.graph import pack_bits as j_pack_bits
+from repro.kernels.edge_update.ops import edge_update as j_b9
+from repro.kernels.edge_update.ops import edge_update_packed as j_b5
+from repro.kernels.edge_update.ref import edge_update_packed_ref as j_b5_ref
+from repro.kernels.edge_update.ref import edge_update_ref as j_b9_ref
 from repro_torch.core.graph import pack_bits
-from repro_torch.kernels.bfs_multi_step.ops import multi_bfs_step_packed_kernel
-from repro_torch.kernels.bfs_multi_step.ref import multi_bfs_step_packed_ref
+from repro_torch.kernels.bfs_multi_step.ops import (multi_bfs_step,
+                                                    multi_bfs_step_packed_kernel)
+from repro_torch.kernels.bfs_multi_step.ref import (multi_bfs_step_packed_ref,
+                                                    multi_bfs_step_ref)
 from repro_torch.kernels.bfs_pull_step.ops import bfs_pull_step_rows
 from repro_torch.kernels.bfs_pull_step.ref import bfs_pull_step_ref
-from repro_torch.kernels.bfs_step.ops import bfs_step_packed_kernel
-from repro_torch.kernels.bfs_step.ref import bfs_step_packed_ref
+from repro_torch.kernels.bfs_step.ops import bfs_step, bfs_step_packed_kernel
+from repro_torch.kernels.bfs_step.ref import bfs_step_packed_ref, bfs_step_ref
+from repro_torch.kernels.edge_update.ops import (edge_update,
+                                                 edge_update_packed)
+from repro_torch.kernels.edge_update.ref import (edge_update_packed_ref,
+                                                 edge_update_ref)
 from repro.kernels.label_join.kernel import (label_join_packed_pallas,
                                              label_join_pallas)
 from repro.kernels.label_join.ref import label_join_packed_ref as j_b4
@@ -167,6 +190,10 @@ def test_plain_versions_chunk_without_changing_results():
     for a, b in zip(bfs_pull_step_ref(*pargs),
                     bfs_pull_step_ref(*pargs, budget=1)):
         assert torch.equal(a, b)
+    dargs = (_t(fr), _dense(words, 200), _t(alive), _t(vis))
+    for a, b in zip(multi_bfs_step_ref(*dargs),
+                    multi_bfs_step_ref(*dargs, budget=1)):
+        assert torch.equal(a, b)
 
 
 @pytest.fixture
@@ -266,3 +293,170 @@ def test_cuda_label_join_kernels_match_plain_versions(cuda_device, q, l,
     for got in (dense, packed):
         for x, y in zip(got, label_join_ref(ta, tb)):
             assert torch.equal(x, y)
+
+
+# ----------------------------------------------------------------------------
+# B6 / B7: the dense supersteps (JAX's ops wrappers run the Pallas kernels
+# in interpret mode). V <= 64: interpret mode is slow.
+# ----------------------------------------------------------------------------
+def _dense(words, v):
+    """uint8[R, v] adjacency of packed uint32 words."""
+    bits = np.unpackbits(np.ascontiguousarray(words).view(np.uint8), axis=1,
+                         bitorder="little")[:, :v]
+    return torch.from_numpy(np.ascontiguousarray(bits))
+
+
+DENSE_CASES = [(40, 1, 0.0), (40, 5, 0.3), (64, 5, 0.05), (64, 1, 0.3)]
+
+
+@pytest.mark.parametrize("v,q,density", DENSE_CASES)
+def test_b6_dense_plain_matches_pallas(v, q, density):
+    words, _, fr, alive, vis = _case(v, q, density, seed=5 * v + q)
+    adj = _dense(words, v)
+    for r0, r1 in ((0, v), (8, 8 + (v - 8) // 2)):     # full, a row slice
+        a = adj[r0:r1].contiguous()
+        targs = (_t(fr[:, r0:r1]), a, _t(alive), _t(vis))
+        new, parent = multi_bfs_step_ref(*targs)
+        pallas = j_b6(jnp.asarray(fr[:, r0:r1]), jnp.asarray(a.numpy()),
+                      jnp.asarray(alive), jnp.asarray(vis))
+        oracle = j_b6_ref(jnp.asarray(fr[:, r0:r1], jnp.float32),
+                          jnp.asarray(a.numpy()),
+                          jnp.asarray(alive, jnp.int32),
+                          jnp.asarray(vis, jnp.int32))
+        for want in (pallas, oracle):
+            np.testing.assert_array_equal(new.numpy(), np.asarray(want[0]) > 0)
+            np.testing.assert_array_equal(parent.numpy(), np.asarray(want[1]))
+        # column 31 is reached from row 0 of a full frontier 0
+        if r0 == 0 and alive[31] and not vis[0, 31]:
+            assert bool(new[0, 31]) and int(parent[0, 31]) == 0
+        for x, y in zip(multi_bfs_step(*targs), (new, parent)):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("v,density", [(40, 0.3), (64, 0.05)])
+def test_b7_dense_single_plain_matches_pallas(v, density):
+    words, _, fr, alive, vis = _case(v, 1, density, seed=7 * v)
+    adj = _dense(words, v)
+    targs = (_t(fr[0]), adj, _t(alive), _t(vis[0]))
+    new, parent = bfs_step_ref(*targs)
+    pallas = j_b7(jnp.asarray(fr[0]), jnp.asarray(adj.numpy()),
+                  jnp.asarray(alive), jnp.asarray(vis[0]))
+    oracle = j_b7_ref(jnp.asarray(fr[0], jnp.float32),
+                      jnp.asarray(adj.numpy()), jnp.asarray(alive, jnp.int32),
+                      jnp.asarray(vis[0], jnp.int32))
+    for want in (pallas, oracle):
+        np.testing.assert_array_equal(new.numpy(), np.asarray(want[0]) > 0)
+        np.testing.assert_array_equal(parent.numpy(), np.asarray(want[1]))
+    for x, y in zip(bfs_step(*targs), (new, parent)):
+        assert torch.equal(x, y)
+
+
+# ----------------------------------------------------------------------------
+# B5 / B9: the lane-ordered edge writes
+# ----------------------------------------------------------------------------
+def _lanes(v, b, seed, vals_from):
+    """Edge-write lanes with duplicate targets, a column-31 target, masked
+    lanes (mask <= 0) parked out of range, and ``vals`` from ``vals_from``."""
+    rng = np.random.default_rng(seed)
+    adj = (rng.random((v, v)) < 0.1).astype(np.uint8)
+    ecnt = rng.integers(0, 5, v).astype(np.int32)
+    rows = rng.integers(0, v, b).astype(np.int32)
+    cols = rng.integers(0, v, b).astype(np.int32)
+    rows[-3:], cols[-3:] = rows[0], cols[0]        # four lanes, one target
+    cols[1] = 31 % v
+    vals = rng.choice(vals_from, b).astype(np.int32)
+    mask = rng.choice([0, 1, 3, -2], b).astype(np.int32)
+    mask[0] = mask[-1] = 1
+    off = mask <= 0
+    rows[off & (rng.random(b) < 0.5)] = 10**6
+    cols[off & (rng.random(b) < 0.5)] = -10**6
+    return adj, ecnt, rows, cols, vals, mask
+
+
+EDGE_CASES = [(20, 8), (45, 33), (64, 40)]
+IN_RANGE_VALS = [0, 1, 2, 7, 255]        # where the JAX refs agree with
+ANY_VALS = IN_RANGE_VALS + [256, -1]     # the JAX kernels
+
+
+def _packed_words(adj):
+    return np.asarray(j_pack_bits(jnp.asarray(adj > 0)))
+
+
+@pytest.mark.parametrize("v,b", EDGE_CASES)
+@pytest.mark.parametrize("vals_from", [IN_RANGE_VALS, ANY_VALS])
+def test_b9_dense_edge_update_plain_matches_jax(v, b, vals_from):
+    case = _lanes(v, b, seed=v + b, vals_from=vals_from)
+    want = [j_b9(*[jnp.asarray(x) for x in case])]
+    if vals_from is IN_RANGE_VALS:
+        want.append(j_b9_ref(*[jnp.asarray(x) for x in case]))
+    t = [torch.from_numpy(x.copy()) for x in case]
+    adj, ecnt = edge_update_ref(*t)
+    for w in want:
+        np.testing.assert_array_equal(adj.numpy(), np.asarray(w[0]))
+        np.testing.assert_array_equal(ecnt.numpy(), np.asarray(w[1]))
+    for x, y in zip(edge_update(*t), (adj, ecnt)):
+        assert torch.equal(x, y)
+    for x, y in zip(t, case):                              # not written
+        assert torch.equal(x, _t(y))
+
+
+@pytest.mark.parametrize("v,b", EDGE_CASES)
+@pytest.mark.parametrize("vals_from", [IN_RANGE_VALS, ANY_VALS])
+def test_b5_packed_edge_update_plain_matches_jax(v, b, vals_from):
+    adj, *rest = _lanes(v, b, seed=2 * v + b, vals_from=vals_from)
+    words = _packed_words(adj)
+    case = [words] + rest
+    want = [j_b5(*[jnp.asarray(x) for x in case])]
+    if vals_from is IN_RANGE_VALS:
+        want.append(j_b5_ref(*[jnp.asarray(x) for x in case]))
+    t = [_t(words)] + [torch.from_numpy(x.copy()) for x in rest]
+    got, ecnt = edge_update_packed_ref(*t)
+    for w in want:
+        np.testing.assert_array_equal(_u32(got), np.asarray(w[0]))
+        np.testing.assert_array_equal(ecnt.numpy(), np.asarray(w[1]))
+    for x, y in zip(edge_update_packed(*t), (got, ecnt)):
+        assert torch.equal(x, y)
+    for x, y in zip(t, case):                              # not written
+        assert torch.equal(x, _t(y))
+
+
+def test_edge_update_last_lane_wins_on_the_sign_bit():
+    """Duplicates of one target apply in lane order, in the sign bit too;
+    every firing lane bumps ecnt, a masked lane does nothing."""
+    words = torch.zeros((4, 2), dtype=torch.int32)
+    ecnt = torch.zeros((4,), dtype=torch.int32)
+    lanes = [torch.tensor(x, dtype=torch.int32) for x in
+             ([1, 1, 1, 2, 99], [31, 31, 31, 63, -5], [1, 0, 1, 1, 1],
+              [1, 1, 1, 1, 0])]
+    got, e = edge_update_packed(words, ecnt, *lanes)
+    assert _u32(got)[1, 0] == 1 << 31 and _u32(got)[2, 1] == 1 << 31
+    assert e.tolist() == [0, 3, 1, 0]
+    dense, e = edge_update(torch.zeros((4, 64), dtype=torch.uint8), ecnt,
+                           *lanes[:2], torch.tensor([7, 0, 300, 1, 1],
+                                                    dtype=torch.int32),
+                           lanes[3])
+    assert int(dense[1, 31]) == 300 % 256 and e.tolist() == [0, 3, 1, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,q,density", DENSE_CASES)
+def test_cuda_dense_and_edge_kernels_match_plain_versions(cuda_device, v, q,
+                                                          density):
+    words, _, fr, alive, vis = _case(v, q, density, seed=v * q + 1)
+    d = cuda_device
+    args = [_t(fr).to(d), _dense(words, v).to(d), _t(alive).to(d),
+            _t(vis).to(d)]
+    for a, b in zip(multi_bfs_step(*args), multi_bfs_step_ref(*args)):
+        assert torch.equal(a, b)
+    single = [args[0][0], args[1], args[2], args[3][0]]
+    for a, b in zip(bfs_step(*single), bfs_step_ref(*single)):
+        assert torch.equal(a, b)
+    adj, *rest = _lanes(v, 64, seed=v, vals_from=ANY_VALS)
+    t = [torch.from_numpy(x).to(d) for x in rest]
+    dense = torch.from_numpy(adj).to(d)
+    for a, b in zip(edge_update(dense, *t), edge_update_ref(dense, *t)):
+        assert torch.equal(a, b)
+    packed = _t(_packed_words(adj)).to(d)
+    for a, b in zip(edge_update_packed(packed, *t),
+                    edge_update_packed_ref(packed, *t)):
+        assert torch.equal(a, b)

@@ -2,8 +2,9 @@
 JAX package's: ``examples/quickstart.py`` replayed line for line on both
 (the same printed values, the §3.5 adversary caught, the same session round
 counts), Collects field by field, ``collect_batch`` (fused and vmap),
-``get_paths_session`` / ``get_path_session`` in both ``on_conflict`` modes,
-and ``interleaved_getpath`` (tolerance 0 throughout)."""
+``get_paths_session`` / ``get_path_session`` in both ``on_conflict`` modes
+(and on the port's "dense_cuda" against JAX "pallas"), and
+``interleaved_getpath`` (tolerance 0 throughout)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -143,6 +144,30 @@ def test_sessions_match_jax(max_rounds, on_conflict):
         for f, a, b in zip(jp._fields, jp, tp):
             np.testing.assert_array_equal(b.numpy(), np.asarray(a),
                                           err_msg=f"{k}->{l}: {f}")
+
+
+def test_sessions_on_dense_cuda_match_jax_pallas():
+    """The dense engine under the double collect: the port's "dense_cuda"
+    (B6/B7 plain versions on the CPU) against JAX "pallas" (interpret mode,
+    so capacity 48), with mutations between the collects."""
+    g, t = _graph(seed=5, v=48, nv=44, ne=110)
+    pairs = [(0, 7), (3, 40), (43, 1), (5, 5), (12, 99), (31, 2)]
+    batches = [[(J.OP_ADD_E, 0, 40)], [(J.OP_REM_E, 0, 40)],
+               [(J.OP_REM_V, 9)]]
+    js, ts = {}, {}
+    want = J.get_paths_session(_mutating_fetch(J, g, batches), pairs,
+                               backend="pallas", stats=js)
+    got = T.get_paths_session(_mutating_fetch(T, t, batches, device="cpu"),
+                              pairs, backend="dense_cuda", stats=ts)
+    assert got == want and ts == js
+    assert got == T.get_paths_session(
+        _mutating_fetch(T, t, batches, device="cpu"), pairs)
+    jp = J.get_path_session(_mutating_fetch(J, g, batches), 3, 40,
+                            backend="pallas")
+    tp = T.get_path_session(_mutating_fetch(T, t, batches, device="cpu"), 3,
+                            40, backend="dense_cuda")
+    for f, a, b in zip(jp._fields, jp, tp):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=f)
 
 
 def test_epoch_resolution_uses_the_pinned_state():
