@@ -19,6 +19,13 @@ Phases (each prints lines; the last line is the JSON result):
      0 / 0.01 / 0.3, a common landmark in column 31 and all-zero OUT rows;
      then multi_bfs / bfs on "hybrid_cuda" against "hybrid" at V = 4096,
      Q = 8 on a Graph500 graph, every result field
+  2w. B1, B2 and B3 against their plain versions at Q = 1,024 and 1,025
+     on a random graph (V = 2048) and on skewed graphs (V = 20,480 and
+     20,001, wide enough for every form of B1): rows with every word
+     nonzero, rows with only bit 31 of their words, B2 in-rows too long
+     for its staged lists; full and row slices, with and without parents
+     (``parents=False`` also equals the launch with parents on new and
+     reach)
   2b. closure routing: closure-mode multi_bfs (Q = 256) and build_index
      (the 256 highest-degree slots) on "hybrid_cuda" against "hybrid", and
      on "dense_cuda" (B6) against "hybrid_cuda", on a Graph500 SCALE-12
@@ -53,7 +60,11 @@ Phases (each prints lines; the last line is the JSON result):
      unpacked to 0/1 rows; B5 on ``adj_packed`` and B9 on the dense view
      with the 1,024 lanes of one equal-mix batch's AddE/RemE slots (timed
      in place; the public wrappers copy the matrix first). Beside them the
-     plain versions' times and the bytes/operations bound
+     plain versions' times and the bytes/operations bound, and each
+     kernel's device time per sub-kernel. B1 and B2 also on the Q = 1,024
+     launches of one ``build_index`` over phase 7's landmarks (closure
+     mode, no parents): every launch against its plain version, the 3
+     largest timed (``q1024_*`` keys of the kernels line)
   7. the reachability index at full size on the phase-3 state:
      ``build_index`` on the 1,024 highest-degree alive slots, computed here
      and passed as ``landmark_slots`` (``pick_landmarks`` follows the JAX
@@ -104,6 +115,12 @@ INDEX_ROUNDS = 4
 DENSE_ROUNDS = 4
 CLOSURE_SCALE, CLOSURE_CAPACITY, CLOSURE_Q = 12, 4160, 256
 COMPLETE_SCALE, COMPLETE_CAPACITY, COMPLETE_PAIRS = 10, 1088, 1024
+WIDE_QS = (1024, 1025)       # the index closures' Q, and a ragged group
+# (V, skewed): from V = 16,385 on, Q / 32 x 128-word column blocks fills
+# 132 SMs, so B1's closure launches take its query-grouped form
+WIDE_VS = ((2048, False), (20480, True), (20001, True))
+WIDE_TIMED = 3               # Q = 1,024 launches timed per kernel in phase 6
+WIDE_BUDGET = 1 << 30        # the plain versions' transient at Q = 1,024
 BFS_KERNELS = ("B1", "B2", "B3")
 DENSE_KERNELS = ("B6", "B7")
 EDGE_KERNELS = ("B5", "B9")
@@ -233,11 +250,12 @@ class Timer:
         return max(0.0, self._raw(fn, reps) - self.flush_ms)
 
     def device_ms(self, fn, reps):
-        """Per-call device time of the port's own kernels that ``fn``
-        launches, from a torch.profiler trace (PyTorch's kernels, memsets
-        and copies, the flush among them, left out); None when the trace
-        holds no device events. Unlike ``ms`` it leaves out the time the
-        card waits for the host to enqueue the next launch."""
+        """(per-call device time of the port's own kernels and memsets that
+        ``fn`` launches, {sub-kernel: per-call ms}) from a torch.profiler
+        trace (PyTorch's kernels and copies, the flush among them, left
+        out); (None, {}) when the trace holds no device events. Unlike
+        ``ms`` it leaves out the time the card waits for the host to
+        enqueue the next launch."""
         from torch.profiler import ProfilerActivity, profile
 
         fn()
@@ -252,10 +270,11 @@ class Timer:
         path = TRACE_DIR / "kernel_time.json"
         prof.export_chrome_trace(str(path))
         _, per_name = _busy_ms(path)
+        own = {k: v / reps for k, v in per_name.items()
+               if not k.startswith(("at::", "Memcpy"))}
         if not per_name:
-            return None
-        return sum(v for k, v in per_name.items()
-                   if not k.startswith(("at::", "Memset", "Memcpy"))) / reps
+            return None, {}
+        return sum(own.values()), own
 
 
 # ----------------------------------------------------------------------------
@@ -279,7 +298,10 @@ def phase_device(torch):
         log_file = so.with_suffix(".log")
         lines = log_file.read_text().splitlines() if log_file.exists() else []
         regs = [ln.split("info    : ")[-1] for ln in lines if "registers" in ln]
-        log(f"  {name}: " + " | ".join(regs))
+        spills = [ln.strip() for ln in lines if "spill" in ln
+                  and not re.search(r"\b0 bytes spill stores, 0 bytes spill", ln)]
+        log(f"  {name}: " + " | ".join(regs)
+            + (f"; spills: {spills}" if spills else "; no spills"))
     return card
 
 
@@ -324,8 +346,10 @@ def require_launched(n, keys, where):
 
 
 def same(got, want, what):
+    """Outputs equal bit for bit; ``None`` (no parents asked for) only
+    matches ``None``."""
     for x, y in zip(got, want, strict=True):
-        if not x.equal(y):
+        if (x is None) != (y is None) or (x is not None and not x.equal(y)):
             raise AssertionError(f"kernel != plain: {what}")
 
 
@@ -517,6 +541,111 @@ def phase_index_kernels(torch, rng):
     sync(torch)
     log(f"index kernels vs plain: B1 and B2 at Q={bq} V={v}; {cases} cases "
         f"x (B4, B8, B4 == B8); bit-identical (tolerance 0)")
+
+
+def skewed_words(rng, v: int):
+    """(out-words, in-words) uint32[v, ceil(v/32)] of a sparse random graph
+    (8 edges a vertex) with skewed rows: out-row 1 and in-row 2 have every
+    word nonzero, out-row 3 and in-row 4 only bit 31 of their words, and
+    in-rows 33, 41 and 49 (rows one warp of a 32-row B2 tile stages
+    together) ~200 nonzero words each, so that their lists overflow."""
+    w = -(-v // 32)
+    k = np.arange(w)
+    every = np.minimum(32 * k + 7, v - 1)        # one bit in every word
+    top = 32 * k[32 * k + 31 < v] + 31           # bit 31 of each word
+    many = 32 * rng.choice(w, min(w, 200), replace=False)
+    rows = [rng.integers(0, v, 8 * v), np.full(every.size, 1), every,
+            np.full(top.size, 3), top]
+    cols = [rng.integers(0, v, 8 * v), every, np.full(every.size, 2), top,
+            np.full(top.size, 4)]
+    for hub in (33, 41, 49):
+        src = np.minimum(many + rng.integers(0, 32, many.size), v - 1)
+        rows.append(src)
+        cols.append(np.full(src.size, hub))
+    r, c = np.concatenate(rows), np.concatenate(cols)
+    return pack_edges(r, c, v), pack_edges(c, r, v)
+
+
+def wide_inputs(rng, q: int, v: int, device):
+    """frontier bool[q, v] with mixed densities, queries holding only the
+    last vertex or only bit-31 vertices, and an empty one; visited with the
+    skewed rows mostly unvisited; alive."""
+    import torch
+
+    fr = rng.random((q, v)) < rng.choice([0.0005, 0.005, 0.05], (q, 1))
+    fr[1::7] = False
+    fr[1::7, v - 1] = True                       # only the last vertex
+    fr[2::7] = False
+    fr[2::7, 31::32] = True                      # only bit-31 vertices
+    fr[-1] = False                               # an empty frontier
+    vis = rng.random((q, v)) < 0.3
+    vis[:, [2, 4, 33, 41, 49]] = rng.random((q, 5)) < 0.1
+    alive = rng.random(v) < 0.95
+    alive[[1, 2, 3, 4, 33, 41, 49]] = True
+    return [torch.from_numpy(x).to(device) for x in (fr, vis, alive)]
+
+
+def phase_wide_kernels(torch, rng):
+    """B1, B2 and B3 against their plain versions at Q = 1,024 and 1,025
+    (many query groups, a ragged last one) on a random graph and on skewed
+    graphs (rows with every word nonzero, rows with only bit 31, B2 in-row
+    lists too long to stage), V with and without a multiple of 32 or 128
+    columns, full and row slices, with and without parents; the launches
+    without parents also equal the ones with, on new and reach."""
+    from repro_torch.core.graph import pack_bits
+    from repro_torch.kernels.bfs_multi_step.ops import (
+        multi_bfs_step_packed_kernel as b1)
+    from repro_torch.kernels.bfs_multi_step.ref import (
+        multi_bfs_step_packed_ref as b1_ref)
+    from repro_torch.kernels.bfs_pull_step.ops import bfs_pull_step_rows as b2
+    from repro_torch.kernels.bfs_pull_step.ref import bfs_pull_step_ref as b2_ref
+    from repro_torch.kernels.bfs_step.ops import bfs_step_packed_kernel as b3
+    from repro_torch.kernels.bfs_step.ref import bfs_step_packed_ref as b3_ref
+
+    cases = 0
+    for v, skewed in WIDE_VS:
+        if skewed:
+            out_np, in_np = skewed_words(rng, v)
+        else:
+            out_np = random_words(rng, v, 0.01)
+            in_np = pack_bits(torch.from_numpy(np.unpackbits(
+                out_np.view(np.uint8), axis=1, bitorder="little")[:, :v]
+                .astype(np.bool_)).T.contiguous()).numpy()
+        adj = torch.from_numpy(out_np.view(np.int32)).to(DEVICE)
+        adj_in = torch.from_numpy(np.ascontiguousarray(in_np).view(
+            np.int32)).to(DEVICE)
+        r0, r1 = 1, v // 2 + 3                   # a slice holding the hubs
+        for q in WIDE_QS:
+            fr, vis, alive = wide_inputs(rng, q, v, DEVICE)
+            fw = pack_bits(fr & alive[None, :])
+            push = {"full": (fr, adj, alive, vis),
+                    "slice": (fr[:, r0:r1].contiguous(), adj[r0:r1], alive,
+                              vis)}
+            pull = {"full": (fw, adj_in, alive, vis),
+                    "slice": (fw, adj_in[r0:r1], alive[r0:r1],
+                              vis[:, r0:r1].contiguous())}
+            for name, fn, ref, inputs in (("B1", b1, b1_ref, push),
+                                          ("B2", b2, b2_ref, pull)):
+                for part, args in inputs.items():
+                    what = f"{name} {part} v={v} q={q}"
+                    with_p = fn(*args)
+                    same(with_p, ref(*args, budget=WIDE_BUDGET), what)
+                    without = fn(*args, parents=False)
+                    same(without, ref(*args, parents=False,
+                                      budget=WIDE_BUDGET),
+                         f"{what} parents=False")
+                    same(without[::2], with_p[::2],
+                         f"{what}: parents=False changes new/reach")
+                    cases += 1
+            for i in range(3):
+                sa = (fr[i], adj, alive, vis[i])
+                same(b3(*sa), b3_ref(*sa), f"B3 v={v} query {i}")
+    sync(torch)
+    log(f"wide kernels vs plain: {cases} cases x (parents, no parents, "
+        f"no parents == parents on new/reach) of B1 and B2 at Q in "
+        f"{WIDE_QS}, V in {[v for v, _ in WIDE_VS]}, full and sliced, skewed "
+        f"rows (every word / only bit 31 / lists past B2's stage), and B3; "
+        f"bit-identical (tolerance 0)")
 
 
 def phase_hybrid(torch, rng):
@@ -1209,7 +1338,7 @@ def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
 
     from repro_torch.core import bfs, find_slots, multi_bfs
     from repro_torch.core.graph import unpack_bits
-    from repro_torch.index import query_reach
+    from repro_torch.index import build_index, query_reach
 
     mods, plain = {}, {}
     for key, (_, pkg, _, ref_fn, _, _) in KERNEL_META.items():
@@ -1217,17 +1346,22 @@ def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
         ref = importlib.import_module(f"repro_torch.kernels.{pkg}.ref")
         plain[key] = getattr(ref, ref_fn)
     captured = {k: [] for k in mods}
+    wide = {"B1": [], "B2": []}          # (args, kwargs) of build_index
+    sink = {"to": captured}
     originals = {k: getattr(m, KERNEL_META[k][2]) for k, m in mods.items()}
     traced = [k for k in mods if k not in EDGE_KERNELS]
 
     def recorder(key):
-        def rec(*args):
+        def rec(*args, **kw):
             # a BFS kernel's adjacency (argument 1) is the state's or its
             # dense view and stays unchanged
-            captured[key].append(tuple(
-                a if i == 1 and key in ADJ_ARG_KERNELS else a.clone()
-                for i, a in enumerate(args)))
-            return originals[key](*args)
+            args_c = tuple(a if i == 1 and key in ADJ_ARG_KERNELS
+                           else a.clone() for i, a in enumerate(args))
+            if sink["to"] is wide and key in wide:
+                wide[key].append((args_c, kw))
+            else:
+                captured[key].append(args_c)
+            return originals[key](*args, **kw)
         return rec
 
     def slots(state, keys):
@@ -1246,6 +1380,9 @@ def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
             bfs(st, sk[:1], -1, backend=be)
         query_reach(index, slots(ist, [p[0] for p in ipairs]),
                     slots(ist, [p[1] for p in ipairs]))
+        # the closures of phase 7's build: B1 and B2 at Q = 1,024
+        sink["to"] = wide
+        build_index(st, landmark_slots=index.landmarks)
     finally:
         for k in traced:
             setattr(mods[k], KERNEL_META[k][2], originals[k])
@@ -1266,7 +1403,7 @@ def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
         # the edge writes are checked through their copying wrappers and
         # timed in place
         check = getattr(mods[key], name) if key in EDGE_KERNELS else kern
-        ms, dms, pms, bms, bys, err = [], [], [], [], [], 0
+        ms, dms, subs, pms, bms, bys, err = [], [], [], [], [], [], 0
         for args in calls:
             got, want = check(*args), plain[key](*args)
             same(got, want, f"{name}: kernel != plain at full size")
@@ -1276,12 +1413,26 @@ def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
             if key in EDGE_KERNELS:
                 args = (args[0].clone(), args[1].clone()) + tuple(args[2:])
             ms.append(timer.ms(lambda: kern(*args), 20))
-            dms.append(timer.device_ms(lambda: kern(*args), 20))
+            d, sub = timer.device_ms(lambda: kern(*args), 20)
+            dms.append(d)
+            subs.append(sub)
             pms.append(timer.ms(lambda: plain[key](*args), 2))
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / peak
             bms.append(max(t_bytes, t_ops) * 1e3)
             bys.append("bytes" if t_bytes >= t_ops else "operations")
             del args
+        if key == "B1":
+            rows = [c[0].sum(1).float() for c in calls]
+            big = max(rows, key=lambda r: float(r.sum()))
+            log(f"  B1 frontier skew: the largest captured launch holds "
+                f"{int(big.sum())} query rows, {float(big.mean()):.0f} a "
+                f"query on average and {int(big.max())} in its largest "
+                f"query")
+        if key == "B2":
+            log(f"  B2 stages every row some query still has to visit in "
+                f"full: {statistics.mean(pull_staged_mb(a) for a in calls):.1f}"
+                f" MB a launch (the bound reads each row up to its last "
+                f"needed word)")
         shapes = sorted({tuple(tuple(a.shape) for a in c[:2]) for c in calls})
         # a trace may come back without device events: average the others
         traced_ms = [d for d in dms if d is not None]
@@ -1290,10 +1441,10 @@ def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
                f"launches" if traced_ms else "not measured")
         log(f"{name} ({key}): {len(calls)} captured launches at shapes "
             f"{shapes}: kernel {statistics.mean(ms):.4f} ms/launch (CUDA "
-            f"events; its kernels' device time {dev}), plain "
-            f"{statistics.mean(pms):.3f} ms, bound {statistics.mean(bms):.6f}"
-            f" ms ({max(set(bys), key=bys.count)}); library_ms null: "
-            f"{no_library}")
+            f"events; its kernels' device time {dev} [{sub_line(subs)}]), "
+            f"plain {statistics.mean(pms):.3f} ms, bound "
+            f"{statistics.mean(bms):.6f} ms ({max(set(bys), key=bys.count)})"
+            f"; library_ms null: {no_library}")
         out.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/{pkg}/kernel.cu",
@@ -1304,7 +1455,66 @@ def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
             "bound_ms": statistics.mean(bms),
             "bound_by": max(set(bys), key=bys.count), "library_ms": None,
         })
+        if key in wide:
+            out[-1].update(wide_times(torch, key, wide[key], kern,
+                                      plain[key], timer))
     return out
+
+
+def pull_staged_mb(args):
+    """MB of in-rows B2 reads on these inputs: every alive row some query
+    with a non-empty frontier has not visited, in full."""
+    fw, adj_in, alive, vis = args
+    pending = ~vis & (fw != 0).any(1)[:, None]
+    rows = int((alive & pending.any(0)).sum())
+    return rows * adj_in.shape[1] * 4 / 1e6
+
+
+def sub_line(subs):
+    """'name ms, ...' of the mean per-sub-kernel device times."""
+    names = sorted({k for s in subs for k in s})
+    return ", ".join(f"{k} {statistics.mean(s.get(k, 0.0) for s in subs):.4f}"
+                     for k in names)
+
+
+def wide_times(torch, key, calls, kern, plain, timer):
+    """B1/B2 on the Q = 1,024 launches of one index build: every launch
+    against its plain version (as the build ran it, without parents), the
+    ``WIDE_TIMED`` largest timed beside their bound."""
+    if not calls:
+        raise AssertionError(f"{key}: no launch of the index build captured")
+    err = 0
+    for args, kw in calls:
+        got, want = kern(*args, **kw), plain(*args, **kw, budget=WIDE_BUDGET)
+        same(got, want, f"{key}: kernel != plain at Q = 1,024")
+        err = max(err, max_abs_err(torch, got, want))
+        del got, want
+
+    def size(c):
+        fr, _, _, vis = c[0]
+        return int(fr.sum()) if key == "B1" else int((~vis).sum())
+    ms, dms, subs, bms = [], [], [], []
+    for args, kw in sorted(calls, key=size, reverse=True)[:WIDE_TIMED]:
+        want = plain(*args, **kw, budget=WIDE_BUDGET)
+        nbytes, nops, peak = _work(torch, key, args, want)
+        del want
+        ms.append(timer.ms(lambda: kern(*args, **kw), 20))
+        d, sub = timer.device_ms(lambda: kern(*args, **kw), 20)
+        if d is not None:
+            dms.append(d)
+        subs.append(sub)
+        bms.append(max(nbytes / HBM_BYTES_PER_S, nops / peak) * 1e3)
+    res = {"q1024_launches": len(calls), "q1024_max_abs_err": err,
+           "q1024_ms": statistics.mean(ms),
+           "q1024_device_ms": statistics.mean(dms) if dms else None,
+           "q1024_bound_ms": statistics.mean(bms)}
+    log(f"{KERNEL_META[key][0]} ({key}) at Q = 1,024: {len(calls)} launches "
+        f"of one build_index ({calls[0][1] or 'with parents'}), max_abs_err "
+        f"{err}; the {len(ms)} largest: kernel {res['q1024_ms']:.4f} "
+        f"ms/launch (CUDA events), device "
+        + (f"{res['q1024_device_ms']:.4f}" if dms else "not measured")
+        + f" ms [{sub_line(subs)}], bound {res['q1024_bound_ms']:.6f} ms")
+    return res
 
 
 def max_abs_err(torch, got, want, chunk=1 << 26):
@@ -1312,6 +1522,8 @@ def max_abs_err(torch, got, want, chunk=1 << 26):
     ``chunk`` elements (B9's outputs are the 4.85 GB dense view)."""
     err = 0
     for x, y in zip(got, want, strict=True):
+        if x is None and y is None:   # no parents asked for
+            continue
         x, y = x.flatten(), y.flatten()
         for i in range(0, x.numel(), chunk):
             d = x[i:i + chunk].to(torch.int64) - y[i:i + chunk].to(torch.int64)
@@ -1341,11 +1553,11 @@ def _work(torch, key, args, want):
         nbytes = (4 * 4 * rows.numel() + 2 * adj.element_size() * touched
                   + 2 * 4 * int(torch.unique(r).numel()))
         return nbytes, 2 * int(fire.sum()), ALU_OPS_PER_S
+    outs = sum(t.numel() * t.element_size() for t in want if t is not None)
     if key in ADJ_ARG_KERNELS and key != "B2":
         fr, adj, alive, vis = args
         fr2 = fr.reshape(-1, fr.shape[-1])
         rows = int(fr2.any(0).sum())
-        outs = sum(t.numel() * t.element_size() for t in want)
         row_bytes = adj.shape[1] * adj.element_size()
         nbytes = (fr.numel() + rows * row_bytes + alive.numel() + vis.numel()
                   + outs)
@@ -1355,13 +1567,23 @@ def _work(torch, key, args, want):
         return nbytes, 2 * int(fr2.sum()) * adj.shape[1], ALU_OPS_PER_S
     fw, adj_in, alive, vis = args
     new, parent = want
+    if parent is None:     # without parents: where each query's scan stops
+        from repro_torch.kernels.bfs_pull_step.ref import bfs_pull_step_ref
+        parent = bfs_pull_step_ref(*args, budget=WIDE_BUDGET)[1]
     w = adj_in.shape[1]
     pending = alive[None, :] & ~vis & (fw != 0).any(1)[:, None]
     need = torch.where(pending, torch.where(new, parent // 32 + 1, w), 0)
     words = int(need.amax(0).sum()) if need.numel() else 0
-    outs = new.numel() + parent.numel() * 4
     nbytes = fw.numel() * 4 + words * 4 + alive.numel() + vis.numel() + outs
-    return nbytes, 2 * int(need.sum()), ALU_OPS_PER_S
+    # an AND and a test per query and NONZERO in-word up to where its scan
+    # stops (a zero word needs no work once read)
+    nz_upto = (adj_in != 0).to(torch.int32).cumsum(1)           # [R, W]
+    ops = 0
+    for q0 in range(0, need.shape[0], 128):
+        nd = need[q0:q0 + 128].T                                 # [R, q]
+        got = nz_upto.gather(1, (nd - 1).clamp(min=0).long())
+        ops += 2 * int(torch.where(nd > 0, got, 0).sum())
+    return nbytes, ops, ALU_OPS_PER_S
 
 
 def main(argv=None) -> int:
@@ -1388,6 +1610,7 @@ def main(argv=None) -> int:
     card = phase_device(torch)
     phase_kernels(torch, rng, dense_rng)
     phase_index_kernels(torch, index_rng)
+    phase_wide_kernels(torch, np.random.default_rng([args.seed, 3]))
     phase_hybrid(torch, rng)
     phase_closure(torch, index_rng)
     st, launches, pairs, batch, deg_src = phase_main(torch, rng, ROUNDS)

@@ -119,7 +119,8 @@ def launch(name: str, fn: str, device, *args) -> None:
     """Call launcher ``fn`` of kernel package ``name`` on ``device``'s
     current stream. ``args`` are tensors (passed as device pointers) and
     Python ints (passed as C ints); the stream is appended. Raises on a
-    CUDA error. The launch does not synchronize."""
+    CUDA error. The launch does not synchronize. ``None`` passes a null
+    pointer (an output the launcher is told not to write)."""
     lib = load(name)
     cfn = getattr(lib, fn)
     cfn.argtypes = [ctypes.c_int if isinstance(a, int) else ctypes.c_void_p
@@ -127,7 +128,8 @@ def launch(name: str, fn: str, device, *args) -> None:
     cfn.restype = ctypes.c_int
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        vals = [a if isinstance(a, int) else a.data_ptr() for a in args]
+        vals = [a if isinstance(a, int) or a is None else a.data_ptr()
+                for a in args]
         check(lib, cfn(*vals, stream), f"{name}.{fn}")
 
 

@@ -9,9 +9,10 @@
 extern "C" int multi_bfs_step_packed_launch(
     const void* frontier, const void* adj, const void* alive,
     const void* visited, void* new_out, void* parent, void* reach, void* fw,
-    int q_n, int r_n, int w_n, int v_n, void* stream) {
+    int q_n, int r_n, int w_n, int v_n, int parents, void* stream) {
   return static_cast<int>(push::launch(frontier, adj, alive, visited, new_out,
                                        parent, reach, fw, q_n, r_n, w_n, v_n,
+                                       parents,
                                        static_cast<cudaStream_t>(stream)));
 }
 

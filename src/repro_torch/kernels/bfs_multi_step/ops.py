@@ -7,7 +7,9 @@ kernel, on a CPU tensor it runs the plain version, on anything else it
 raises. ``launches`` (B1) and ``dense_launches`` (B6) count kernel
 launches. ``multi_bfs_step_packed`` is the bool-interface drop-in for
 ``core.bfs.multi_bfs_step_packed_jnp``. No query or column padding is
-needed: the kernels take any Q and mask columns >= V themselves.
+needed: the kernels take any Q and mask columns >= V themselves. B1 takes
+``parents=False`` (closure mode): no parent is computed or written and
+``None`` stands in its place.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ launches = 0
 dense_launches = 0
 
 
-def _launch(frontiers, adj_packed, alive, visited):
+def _launch(frontiers, adj_packed, alive, visited, parents=True):
     global launches
     q, rows = frontiers.shape
     w = adj_packed.shape[1]
@@ -35,32 +37,38 @@ def _launch(frontiers, adj_packed, alive, visited):
                                (visited, "visited", torch.bool, (q, v))):
         _build.check_tensor(t, name, dt, shape, dev)
     new = torch.empty((q, v), dtype=torch.bool, device=dev)
-    parent = torch.empty((q, v), dtype=torch.int32, device=dev)
+    parent = (torch.empty((q, v), dtype=torch.int32, device=dev)
+              if parents else None)
     reach = torch.empty((q, w), dtype=torch.int32, device=dev)
     scratch = torch.empty((q, -(-rows // 32)), dtype=torch.int32, device=dev)
     _build.launch("bfs_multi_step", "multi_bfs_step_packed_launch", dev,
                   frontiers, adj_packed, alive, visited, new, parent, reach,
-                  scratch, q, rows, w, v)
+                  scratch, q, rows, w, v, int(parents))
     launches += 1
     return new, parent, reach
 
 
-def multi_bfs_step_packed_kernel(frontiers, adj_packed, alive, visited):
-    """B1: (new bool[Q, V], parent int32[Q, V] slice-relative, reach_words
-    int32[Q, W] raw)."""
+def multi_bfs_step_packed_kernel(frontiers, adj_packed, alive, visited,
+                                 parents: bool = True):
+    """B1: (new bool[Q, V], parent int32[Q, V] slice-relative or None with
+    ``parents=False``, reach_words int32[Q, W] raw)."""
     if adj_packed.is_cuda:
-        return _launch(frontiers, adj_packed, alive, visited)
+        return _launch(frontiers, adj_packed, alive, visited, parents)
     if adj_packed.device.type == "cpu":
-        return multi_bfs_step_packed_ref(frontiers, adj_packed, alive, visited)
+        return multi_bfs_step_packed_ref(frontiers, adj_packed, alive, visited,
+                                         parents=parents)
     raise ValueError(f"no B1 kernel for device {adj_packed.device}")
 
 
-def multi_bfs_step_packed(frontiers, adj_packed, alive, visited):
+def multi_bfs_step_packed(frontiers, adj_packed, alive, visited,
+                          parents: bool = True):
     """Drop-in for ``core.bfs.multi_bfs_step_packed_jnp``: frontiers
     bool[Q, R], adj_packed int32[R, W], alive bool[V], visited bool[Q, V]
-    -> (new bool[Q, V], parent int32[Q, V])."""
+    -> (new bool[Q, V], parent int32[Q, V] or None with
+    ``parents=False``)."""
     new, parent, _ = multi_bfs_step_packed_kernel(frontiers, adj_packed,
-                                                  alive, visited)
+                                                  alive, visited,
+                                                  parents=parents)
     return new, parent
 
 

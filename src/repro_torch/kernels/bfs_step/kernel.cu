@@ -2,7 +2,7 @@
 // dense form over a uint8 adjacency, on sm_90a.
 // B3 replaces repro/kernels/bfs_step/kernel.py::bfs_step_packed_pallas; it
 // is the Q = 1 instance of the B1 push (../bfs_multi_step/push.cuh): with
-// one query the row split spreads the frontier rows over the card's SMs.
+// one query the split form spreads the frontier rows over the card's SMs.
 // B7 replaces repro/kernels/bfs_step/kernel.py::bfs_step_pallas, the Q = 1
 // instance of the B6 dense push (../bfs_multi_step/dense.cuh).
 #include "../bfs_multi_step/dense.cuh"
@@ -14,7 +14,7 @@ extern "C" int bfs_step_packed_launch(const void* frontier, const void* adj,
                                       void* fw, int v_n, int w_n,
                                       void* stream) {
   return static_cast<int>(push::launch(frontier, adj, alive, visited, new_out,
-                                       parent, reach, fw, 1, v_n, w_n, v_n,
+                                       parent, reach, fw, 1, v_n, w_n, v_n, 1,
                                        static_cast<cudaStream_t>(stream)));
 }
 

@@ -156,3 +156,36 @@ def test_single_bfs_dense_cuda_matches_jax_pallas(small_graph):
         want = J.bfs(G, s, d, backend="pallas")
         got = T.bfs(TS, s, d, backend="dense_cuda")
         _equal(want, got, f"dense_cuda {s}->{d}")
+
+
+@pytest.mark.parametrize("be", ["hybrid_cuda", "packed_cuda"])
+def test_kernel_closure_route_hands_no_parents_to_the_wrappers(
+        graph, monkeypatch, be):
+    """multi_bfs(parents=False) on a kernel backend calls the B1/B2
+    wrappers with ``parents=False`` (they then compute no parent), and
+    with parents otherwise; both equal JAX."""
+    import repro_torch.kernels.bfs_multi_step.ops as b1
+    import repro_torch.kernels.bfs_pull_step.ops as b2
+
+    seen = []
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            seen.append((name, kw.get("parents", True)))
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(b1, "multi_bfs_step_packed",
+                        spy("B1", b1.multi_bfs_step_packed))
+    monkeypatch.setattr(b2, "multi_bfs_pull_step",
+                        spy("B2", b2.multi_bfs_pull_step))
+    G, TS, SRC, DST = graph
+    for parents in (False, True):
+        seen.clear()
+        want = J.multi_bfs(G, jnp.asarray(SRC), jnp.asarray(DST),
+                           backend="hybrid", parents=parents, **KNOBS)
+        got = T.multi_bfs(TS, SRC, DST, backend=be, parents=parents, **KNOBS)
+        _equal(want, got, f"{be} parents={parents}")
+        names = {n for n, _ in seen}
+        assert names == ({"B1", "B2"} if be == "hybrid_cuda" else {"B1"})
+        assert {p for _, p in seen} == {parents}

@@ -158,6 +158,16 @@ def test_build_index_pinned_slots_matches_jax():
                      slots[5:9])), "pinned tensor")
 
 
+@pytest.mark.parametrize("num", [None, 3])
+def test_build_index_kernel_backend_matches_jax(graph, num):
+    """The closures on "hybrid_cuda" (B1/B2 without parents, plain
+    versions on the CPU) against JAX's build."""
+    g, t = graph
+    _index_equal(JI.build_index(g, num),
+                 TI.build_index(t, num, backend="hybrid_cuda"),
+                 f"hybrid_cuda num_landmarks={num}")
+
+
 def test_build_index_on_kernel_backend_matches_plain(graph):
     _, t = graph
     a = TI.build_index(t, backend="hybrid_cuda")
@@ -282,19 +292,22 @@ def test_reach_counts_session_matches_jax(graph):
 
 def test_closure_mode_routes_through_the_kernel_wrappers(graph, monkeypatch):
     """multi_bfs(parents=False) on "hybrid_cuda" calls the B1/B2 wrappers
-    (plain branches on the CPU) and equals JAX's closure mode and the plain
-    "hybrid" closure on every field, forward and reversed."""
+    (plain branches on the CPU) with ``parents=False``, and equals JAX's
+    closure mode and the plain "hybrid" closure on every field, forward and
+    reversed."""
     from repro_torch.index.labels import _reversed
     from repro.index.labels import _reversed as jax_reversed
     import repro_torch.kernels.bfs_multi_step.ops as b1
     import repro_torch.kernels.bfs_pull_step.ops as b2
 
     calls = {"push": 0, "pull": 0}
+    flags = set()
 
     def spy(key, fn):
-        def wrapped(*a):
+        def wrapped(*a, **kw):
             calls[key] += 1
-            return fn(*a)
+            flags.add(kw.get("parents", True))
+            return fn(*a, **kw)
         return wrapped
 
     monkeypatch.setattr(b1, "multi_bfs_step_packed",
@@ -313,6 +326,7 @@ def test_closure_mode_routes_through_the_kernel_wrappers(graph, monkeypatch):
                 np.testing.assert_array_equal(b.numpy(), np.asarray(a),
                                               err_msg=f"{be} {f}")
     assert calls["push"] > 0 and calls["pull"] > 0
+    assert flags == {False}
 
 
 def test_traced_session_observes_index_metrics(graph):

@@ -3,8 +3,10 @@ wrappers run for CPU tensors) against the JAX Pallas kernels in interpret
 mode and against the JAX ref.py oracles, bit for bit (tolerance 0):
 
   B1 bfs_multi_step  new, parent (slice-relative) and raw reach_words,
-                     including a row slice R < V
-  B2 bfs_pull_step   new, parent (global ids), including a row slice
+                     including a row slice R < V; without parents
+                     (closure mode) new and reach, at Q > 64
+  B2 bfs_pull_step   new, parent (global ids), including a row slice;
+                     without parents new, at Q > 64
   B3 bfs_step        new, parent and raw reach_words
   B6 bfs_multi_step  dense: new, parent (slice-relative), including a row
                      slice R < V
@@ -174,6 +176,75 @@ def test_b3_single_push_plain_matches_pallas(v, density):
         np.testing.assert_array_equal(_u32(reach), np.asarray(want[2]))
     for a, b in zip(bfs_step_packed_kernel(*targs), (new, parent, reach)):
         assert torch.equal(a, b)
+
+
+NO_PARENT_CASES = [(75, 70, 0.1), (200, 130, 0.05), (40, 65, 0.3)]
+
+
+@pytest.mark.parametrize("v,q,density", NO_PARENT_CASES)
+def test_b1_without_parents_matches_with_parents_and_pallas(v, q, density):
+    """Closure mode: B1's plain version with ``parents=False`` gives the
+    same new and reach as with parents and as the Pallas kernel, and None
+    in the parent's place (Q > 64, V not a multiple of 32, edges in
+    column 31)."""
+    words, _, fr, alive, vis = _case(v, q, density, seed=5 * v + q)
+    w = words.shape[1]
+    vc = w * 32
+    for r0, r1 in ((0, v), (8, 8 + (v - 8) // 2 // 8 * 8)):
+        args = (_t(fr[:, r0:r1]), _t(words[r0:r1]), _t(alive), _t(vis))
+        new, parent, reach = multi_bfs_step_packed_ref(*args, parents=False)
+        assert parent is None
+        with_p = multi_bfs_step_packed_ref(*args)
+        assert torch.equal(new, with_p[0]) and torch.equal(reach, with_p[2])
+        pallas = multi_bfs_step_packed_pallas(
+            jnp.asarray(fr[:, r0:r1], jnp.float32), jnp.asarray(words[r0:r1]),
+            _pad(alive, vc), _pad(vis, vc), tr=_pick_tile(r1 - r0),
+            tw=_pick_word_tile(w), interpret=True)
+        np.testing.assert_array_equal(new.numpy(),
+                                      np.asarray(pallas[0])[:, :v] > 0)
+        np.testing.assert_array_equal(_u32(reach), np.asarray(pallas[2]))
+        got = multi_bfs_step_packed_kernel(*args, parents=False)
+        assert got[1] is None
+        assert torch.equal(got[0], new) and torch.equal(got[2], reach)
+
+
+@pytest.mark.parametrize("v,q,density", NO_PARENT_CASES)
+def test_b2_without_parents_matches_with_parents_and_pallas(v, q, density):
+    """B2's plain version with ``parents=False``: the same new as with
+    parents and as the Pallas kernel, None in the parent's place."""
+    _, in_words, fr, alive, vis = _case(v, q, density, seed=7 * v + q)
+    fw = np.asarray(pack_bits(torch.from_numpy(fr & alive)).numpy()
+                    ).view(np.uint32)
+    for r0, r1 in ((0, v), (8, 8 + (v - 8) // 2 // 8 * 8)):
+        targs = (_t(fw), _t(in_words[r0:r1]), _t(alive[r0:r1]),
+                 _t(vis[:, r0:r1]))
+        new, parent = bfs_pull_step_ref(*targs, parents=False)
+        assert parent is None
+        assert torch.equal(new, bfs_pull_step_ref(*targs)[0])
+        pallas = bfs_pull_step_pallas(
+            jnp.asarray(fw), jnp.asarray(in_words[r0:r1]),
+            jnp.asarray(alive[r0:r1], jnp.int32),
+            jnp.asarray(vis[:, r0:r1], jnp.int32), tr=_pick_tile(r1 - r0),
+            interpret=True)
+        np.testing.assert_array_equal(new.numpy(), np.asarray(pallas[0]) > 0)
+        got = bfs_pull_step_rows(*targs, parents=False)
+        assert got[1] is None and torch.equal(got[0], new)
+
+
+def test_bool_wrappers_pass_parents_through():
+    """The drop-ins of core.bfs hand ``parents`` to the kernel wrappers."""
+    from repro_torch.kernels.bfs_multi_step.ops import multi_bfs_step_packed
+    from repro_torch.kernels.bfs_pull_step.ops import multi_bfs_pull_step
+
+    words, in_words, fr, alive, vis = _case(75, 70, 0.1, seed=3)
+    push = (_t(fr), _t(words), _t(alive), _t(vis))
+    pull = (_t(fr), _t(in_words), _t(alive), _t(vis))
+    for fn, args in ((multi_bfs_step_packed, push),
+                     (multi_bfs_pull_step, pull)):
+        new, parent = fn(*args, parents=False)
+        assert parent is None
+        with_p = fn(*args)
+        assert torch.equal(new, with_p[0]) and with_p[1] is not None
 
 
 def test_plain_versions_chunk_without_changing_results():
