@@ -10,7 +10,10 @@ Phases (each prints lines; the last line is the JSON result):
      versions on the card, bit for bit (tolerance 0: every output is an
      integer or a bool), over densities 0 / 0.01 / 0.3, V in {2000, 2048},
      Q in {1, 5, 16, 70} (and 1,024, the index closures' Q, at V = 2048),
-     an edge in column 31 and row slices; B5 (packed edge writes) and B9
+     an edge in column 31 and row slices; B6 also without parents, at
+     V = 2001 (the byte-wise tail) and at Q in {64, 65, 129} on a hub
+     column and rows with every 16-byte chunk nonzero, sliced from an odd
+     row; B5 (packed edge writes) and B9
      (dense) against theirs over B in {1, 1024} lanes with duplicate
      targets, masked lanes parked out of range, column 31 and dense values
      outside {0, 1}; B4 (packed label
@@ -28,7 +31,8 @@ Phases (each prints lines; the last line is the JSON result):
      reach)
   2b. closure routing: closure-mode multi_bfs (Q = 256) and build_index
      (the 256 highest-degree slots) on "hybrid_cuda" against "hybrid", and
-     on "dense_cuda" (B6) against "hybrid_cuda", on a Graph500 SCALE-12
+     on "dense_cuda" (B6, launched without parents) against
+     "hybrid_cuda", on a Graph500 SCALE-12
      graph, every field; a complete index (every alive vertex a
      landmark) of a SCALE-10 graph answers 1,024 pairs and their sources'
      reachable counts exactly as scipy's BFS does
@@ -61,7 +65,9 @@ Phases (each prints lines; the last line is the JSON result):
      with the 1,024 lanes of one equal-mix batch's AddE/RemE slots (timed
      in place; the public wrappers copy the matrix first). Beside them the
      plain versions' times and the bytes/operations bound, and each
-     kernel's device time per sub-kernel. B1 and B2 also on the Q = 1,024
+     kernel's device time per sub-kernel (``device_sub_ms``); B6 also
+     without parents on the same launches (``no_parents_*`` keys). B1 and
+     B2 also on the Q = 1,024
      launches of one ``build_index`` over phase 7's landmarks (closure
      mode, no parents): every launch against its plain version, the 3
      largest timed (``q1024_*`` keys of the kernels line)
@@ -116,6 +122,7 @@ DENSE_ROUNDS = 4
 CLOSURE_SCALE, CLOSURE_CAPACITY, CLOSURE_Q = 12, 4160, 256
 COMPLETE_SCALE, COMPLETE_CAPACITY, COMPLETE_PAIRS = 10, 1088, 1024
 WIDE_QS = (1024, 1025)       # the index closures' Q, and a ragged group
+DENSE_QS = (64, 65, 129)     # B6 over one, two and three query groups
 # (V, skewed): from V = 16,385 on, Q / 32 x 128-word column blocks fills
 # 132 SMs, so B1's closure launches take its query-grouped form
 WIDE_VS = ((2048, False), (20480, True), (20001, True))
@@ -376,11 +383,13 @@ def edge_lanes(rng, v: int, b: int, device):
             for x in (rows, cols, vals, mask)]
 
 
-def phase_kernels(torch, rng, rng2):
+def phase_kernels(torch, rng, rng2, rng3):
     """Every kernel against its plain version on the card, bit for bit.
     The dense and edge-write cases draw from ``rng2``, so that ``rng``
     leaves this phase where the packed cases alone leave it (the later
-    phases' graphs do not depend on those cases)."""
+    phases' graphs do not depend on those cases), and the dense cases
+    over several query groups from ``rng3``, so that ``rng2`` leaves it
+    where it did before them."""
     from repro_torch.core.graph import pack_bits
     from repro_torch.kernels.bfs_multi_step.ops import (
         multi_bfs_step_packed_kernel)
@@ -439,15 +448,34 @@ def phase_kernels(torch, rng, rng2):
         vis = torch.from_numpy(rng2.random((q, v)) < 0.3).to(dev)
         dense_cases(torch, fr, bits, alive, vis, (501, 1201), v)
         cases += 1
+    # the dense kernels over one, two and three query groups, on a hub
+    # column (every row hits it) and rows with every 16-byte chunk
+    # nonzero, sliced from an odd row; V = 2048 takes the 16-byte loads,
+    # V = 2001 the byte-wise tail
+    for v in (2048, 2001):
+        bits = torch.from_numpy(rng3.random((v, v)) < 0.01).to(dev)
+        bits[:, v - 7] = True
+        full = torch.from_numpy(rng3.choice(v, 64, replace=False)).to(dev)
+        bits[full, 5::16] = True
+        alive = torch.from_numpy(rng3.random(v) < 0.9).to(dev)
+        alive[v - 7] = True
+        for q in DENSE_QS:
+            fr = torch.from_numpy(rng3.random((q, v)) < 0.05).to(dev)
+            fr[:, full[:8]] = True
+            vis = torch.from_numpy(rng3.random((q, v)) < 0.3).to(dev)
+            dense_cases(torch, fr, bits, alive, vis, (333, 1555), v)
+            cases += 1
     sync(torch)
     log(f"kernels vs plain: {cases} cases x (B1, B1 slice, B2, B2 slice, "
-        f"B3, B6, B6 slice, B7; at V = 2001 the dense three alone) and "
+        f"B3, B6, B6 slice, B7, B6 and its slice without parents; at "
+        f"V = 2001 and Q in {DENSE_QS} the dense ones alone) and "
         f"{edge_cases} edge-write cases x (B5, B9) bit-identical "
         f"(tolerance 0)")
 
 
 def dense_cases(torch, fr, bits, alive, vis, rows, v):
-    """B6 (full and a row slice) and B7 against their plain versions."""
+    """B6 (full and a row slice, with and without parents) and B7 against
+    their plain versions."""
     from repro_torch.kernels.bfs_multi_step.ops import multi_bfs_step
     from repro_torch.kernels.bfs_multi_step.ref import multi_bfs_step_ref
     from repro_torch.kernels.bfs_step.ops import bfs_step
@@ -455,12 +483,15 @@ def dense_cases(torch, fr, bits, alive, vis, rows, v):
 
     dense = bits.to(torch.uint8)
     q = fr.shape[0]
-    args = (fr, dense, alive, vis)
-    same(multi_bfs_step(*args), multi_bfs_step_ref(*args),
-         f"B6 v={v} q={q}")
     r0, r1 = rows
+    full = (fr, dense, alive, vis)
     sl = (fr[:, r0:r1].contiguous(), dense[r0:r1], alive, vis)
-    same(multi_bfs_step(*sl), multi_bfs_step_ref(*sl), f"B6 slice v={v}")
+    for args, what in ((full, f"B6 v={v} q={q}"),
+                       (sl, f"B6 slice {r0}:{r1} v={v} q={q}")):
+        same(multi_bfs_step(*args), multi_bfs_step_ref(*args), what)
+        same(multi_bfs_step(*args, parents=False),
+             multi_bfs_step_ref(*args, parents=False),
+             f"{what} without parents")
     sa = (fr[0], dense, alive, vis[0])
     same(bfs_step(*sa), bfs_step_ref(*sa), f"B7 v={v}")
 
@@ -1404,6 +1435,7 @@ def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
         # timed in place
         check = getattr(mods[key], name) if key in EDGE_KERNELS else kern
         ms, dms, subs, pms, bms, bys, err = [], [], [], [], [], [], 0
+        bare = {"ms": [], "dms": [], "subs": []}   # B6 without parents
         for args in calls:
             got, want = check(*args), plain[key](*args)
             same(got, want, f"{name}: kernel != plain at full size")
@@ -1416,6 +1448,17 @@ def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
             d, sub = timer.device_ms(lambda: kern(*args), 20)
             dms.append(d)
             subs.append(sub)
+            if key == "B6":
+                same(kern(*args, parents=False),
+                     plain[key](*args, parents=False),
+                     f"{name} without parents at full size")
+                bare["ms"].append(timer.ms(
+                    lambda: kern(*args, parents=False), 20))
+                d, sub = timer.device_ms(lambda: kern(*args, parents=False),
+                                         20)
+                if d is not None:
+                    bare["dms"].append(d)
+                bare["subs"].append(sub)
             pms.append(timer.ms(lambda: plain[key](*args), 2))
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / peak
             bms.append(max(t_bytes, t_ops) * 1e3)
@@ -1445,6 +1488,12 @@ def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
             f"plain {statistics.mean(pms):.3f} ms, bound "
             f"{statistics.mean(bms):.6f} ms ({max(set(bys), key=bys.count)})"
             f"; library_ms null: {no_library}")
+        if bare["ms"]:
+            log(f"  {name} ({key}) without parents on the same launches: "
+                f"kernel {statistics.mean(bare['ms']):.4f} ms/launch, device "
+                + (f"{statistics.mean(bare['dms']):.4f}" if bare["dms"]
+                   else "not measured")
+                + f" ms [{sub_line(bare['subs'])}]")
         out.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/{pkg}/kernel.cu",
@@ -1454,7 +1503,14 @@ def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
             "plain_ms": statistics.mean(pms),
             "bound_ms": statistics.mean(bms),
             "bound_by": max(set(bys), key=bys.count), "library_ms": None,
+            "device_sub_ms": sub_means(subs),
         })
+        if bare["ms"]:
+            out[-1].update({
+                "no_parents_ms": statistics.mean(bare["ms"]),
+                "no_parents_device_ms": (statistics.mean(bare["dms"])
+                                         if bare["dms"] else None),
+                "no_parents_device_sub_ms": sub_means(bare["subs"])})
         if key in wide:
             out[-1].update(wide_times(torch, key, wide[key], kern,
                                       plain[key], timer))
@@ -1470,11 +1526,15 @@ def pull_staged_mb(args):
     return rows * adj_in.shape[1] * 4 / 1e6
 
 
+def sub_means(subs):
+    """{sub-kernel: mean device ms} over launches' {sub-kernel: ms}."""
+    names = sorted({k for s in subs for k in s})
+    return {k: statistics.mean(s.get(k, 0.0) for s in subs) for k in names}
+
+
 def sub_line(subs):
     """'name ms, ...' of the mean per-sub-kernel device times."""
-    names = sorted({k for s in subs for k in s})
-    return ", ".join(f"{k} {statistics.mean(s.get(k, 0.0) for s in subs):.4f}"
-                     for k in names)
+    return ", ".join(f"{k} {v:.4f}" for k, v in sub_means(subs).items())
 
 
 def wide_times(torch, key, calls, kern, plain, timer):
@@ -1608,7 +1668,7 @@ def main(argv=None) -> int:
     dense_rng = np.random.default_rng([args.seed, 2])
     t_all = time.perf_counter()
     card = phase_device(torch)
-    phase_kernels(torch, rng, dense_rng)
+    phase_kernels(torch, rng, dense_rng, np.random.default_rng([args.seed, 4]))
     phase_index_kernels(torch, index_rng)
     phase_wide_kernels(torch, np.random.default_rng([args.seed, 3]))
     phase_hybrid(torch, rng)

@@ -31,11 +31,11 @@ each superstep is one ``bfs.superstep`` span with its direction tag and
 popcounts.
 
 Closure mode (``parents=False``, the index builds) keeps only ``new``. On
-the kernel backends each superstep runs the B1 push or the B2 pull with
-``parents=False`` (they compute and write no parent), or the B6 dense
-push, whose parents are dropped, where JAX keeps closure mode in
-plain jnp: XLA fuses its where+reduce (or, for "pallas", multiplies by a
-float32 [V, V] operand, 19.4 GB at V = 69,632), but eager torch would
+the kernel backends each superstep runs the B1 push or the B2 pull, or
+the B6 dense push, with ``parents=False`` (they compute and write no
+parent), where JAX keeps closure mode in plain jnp: XLA fuses its
+where+reduce (or, for "pallas", multiplies by a float32 [V, V] operand,
+19.4 GB at V = 69,632), but eager torch would
 materialize a [Q, V, W] word volume (tens of GB at the index's Q), so on
 the card the kernels are what keeps the closure inside memory. The plain
 backends keep the plain closure.
@@ -264,8 +264,8 @@ def _run(state: GraphState, src, dst, backend: str, parents: bool,
     # the dense backends get the unpacked view, built once per call
     adj_arg = state.adj if backend in DENSE_BACKENDS else state.adj_packed
     kernel_closure = not parents and backend in CUDA_BACKENDS
-    if kernel_closure and backend != "dense_cuda":
-        # B1/B2 compute and write no parent in closure mode
+    if kernel_closure:
+        # B1/B2 and B6 compute and write no parent in closure mode
         push_fn = functools.partial(push_fn, parents=False)
         pull_fn = pull_fn and functools.partial(pull_fn, parents=False)
     if not parents and not kernel_closure:
@@ -380,9 +380,9 @@ def multi_bfs(state: GraphState, src_slots, dst_slots,
     frontier (their outputs freeze). ``dst_slots[q] < 0`` explores query
     q's whole reachable set. ``parents=False`` is closure-only mode:
     ``parent`` comes back all -1, everything else is unchanged; the kernel
-    backends run it through B1/B2 without parents (B6 on "dense_cuda",
-    whose parents are dropped), the plain backends in plain torch. The hybrid backends pick push or pull
-    per superstep from the active queries' pooled popcounts."""
+    backends run it through B1/B2 (B6 on "dense_cuda") without parents,
+    the plain backends in plain torch. The hybrid backends pick push or
+    pull per superstep from the active queries' pooled popcounts."""
     backend = _resolve_backend(backend, state.device)
     src = _as_slots(src_slots, state.device)
     dst = _as_slots(dst_slots, state.device)

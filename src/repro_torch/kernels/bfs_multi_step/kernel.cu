@@ -19,10 +19,10 @@ extern "C" int multi_bfs_step_packed_launch(
 extern "C" int multi_bfs_step_launch(const void* frontier, const void* adj,
                                      const void* alive, const void* visited,
                                      void* new_out, void* parent, void* qm,
-                                     void* act, int q_n, int r_n, int v_n,
-                                     void* stream) {
+                                     void* scratch, int q_n, int r_n, int v_n,
+                                     int parents, void* stream) {
   return static_cast<int>(dense::launch(frontier, adj, alive, visited,
-                                        new_out, parent, qm, act, q_n, r_n,
-                                        v_n,
+                                        new_out, parent, qm, scratch, q_n,
+                                        r_n, v_n, parents,
                                         static_cast<cudaStream_t>(stream)));
 }

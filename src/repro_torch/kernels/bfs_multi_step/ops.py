@@ -7,9 +7,9 @@ kernel, on a CPU tensor it runs the plain version, on anything else it
 raises. ``launches`` (B1) and ``dense_launches`` (B6) count kernel
 launches. ``multi_bfs_step_packed`` is the bool-interface drop-in for
 ``core.bfs.multi_bfs_step_packed_jnp``. No query or column padding is
-needed: the kernels take any Q and mask columns >= V themselves. B1 takes
-``parents=False`` (closure mode): no parent is computed or written and
-``None`` stands in its place.
+needed: the kernels take any Q and mask columns >= V themselves. B1 and
+B6 take ``parents=False`` (closure mode): no parent is computed or
+written and ``None`` stands in its place.
 """
 from __future__ import annotations
 
@@ -72,7 +72,19 @@ def multi_bfs_step_packed(frontiers, adj_packed, alive, visited,
     return new, parent
 
 
-def _launch_dense(frontiers, adj, alive, visited):
+def dense_scratch(q: int, rows: int, device):
+    """The dense launcher's scratch (``dense.cuh``): per group of 64
+    queries a uint64 query mask per row, and int32 ballot words (one per
+    32 rows), active-row counts (one per 256 rows), the list length and
+    the active-row list (``scratch_ints``)."""
+    groups = -(-q // 64)
+    qmask = torch.empty((groups, rows), dtype=torch.int64, device=device)
+    ints = torch.empty((groups * (-(-rows // 32) + -(-rows // 256) + 1
+                                  + rows),), dtype=torch.int32, device=device)
+    return qmask, ints
+
+
+def _launch_dense(frontiers, adj, alive, visited, parents=True):
     global dense_launches
     q, rows = frontiers.shape
     v = adj.shape[1]
@@ -83,23 +95,24 @@ def _launch_dense(frontiers, adj, alive, visited):
                                (visited, "visited", torch.bool, (q, v))):
         _build.check_tensor(t, name, dt, shape, dev)
     new = torch.empty((q, v), dtype=torch.bool, device=dev)
-    parent = torch.empty((q, v), dtype=torch.int32, device=dev)
-    groups = -(-q // 64)
-    qmask = torch.empty((groups, rows), dtype=torch.int64, device=dev)
-    active = torch.empty((groups, -(-rows // 32)), dtype=torch.int32,
-                         device=dev)
+    parent = (torch.empty((q, v), dtype=torch.int32, device=dev)
+              if parents else None)
+    qmask, scratch = dense_scratch(q, rows, dev)
     _build.launch("bfs_multi_step", "multi_bfs_step_launch", dev, frontiers,
-                  adj, alive, visited, new, parent, qmask, active, q, rows, v)
+                  adj, alive, visited, new, parent, qmask, scratch, q, rows,
+                  v, int(parents))
     dense_launches += 1
     return new, parent
 
 
-def multi_bfs_step(frontiers, adj, alive, visited):
+def multi_bfs_step(frontiers, adj, alive, visited, parents: bool = True):
     """B6, the drop-in for ``core.bfs.multi_bfs_step_jnp`` on the dense
     view: frontiers bool[Q, R], adj uint8[R, V], alive bool[V], visited
-    bool[Q, V] -> (new bool[Q, V], parent int32[Q, V] slice-relative)."""
+    bool[Q, V] -> (new bool[Q, V], parent int32[Q, V] slice-relative, or
+    None with ``parents=False``)."""
     if adj.is_cuda:
-        return _launch_dense(frontiers, adj, alive, visited)
+        return _launch_dense(frontiers, adj, alive, visited, parents)
     if adj.device.type == "cpu":
-        return multi_bfs_step_ref(frontiers, adj, alive, visited)
+        return multi_bfs_step_ref(frontiers, adj, alive, visited,
+                                  parents=parents)
     raise ValueError(f"no B6 kernel for device {adj.device}")

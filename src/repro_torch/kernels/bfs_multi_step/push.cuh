@@ -60,8 +60,7 @@ constexpr int SPLIT_WORDS = 64;  // frontier words (2,048 rows) a split scans
 constexpr int SUBS = 4;          // row sub-walkers of a push_group block
 constexpr int GROUP = 32;        // queries of a push_group block
 constexpr int PREFETCH = 8;      // frontier words push_group loads at once
-constexpr int MIN_BLOCKS = 528;  // 4 blocks per SM on 132 SMs (B1 and B6)
-constexpr int ROWS_PER_BLOCK = 4096;  // B6's (dense.cuh) row split
+constexpr int MIN_BLOCKS = 528;  // 4 blocks per SM on 132 SMs
 constexpr int32_t NO_PARENT = 0x7fffffff;
 
 // Bit i set where byte i of ``x`` is nonzero (4 bits).

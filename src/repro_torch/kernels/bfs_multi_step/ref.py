@@ -20,7 +20,7 @@ alive bool[V], visited bool[Q, V] -> (new bool[Q, V], parent int32[Q, V]):
   new[q, c]      = (some frontier row r of q has adj[r, c] != 0)
                    & alive[c] & ~visited[q, c]
   parent[q, c]   = the smallest such r (relative to the slice), where new;
-                   -1 elsewhere
+                   -1 elsewhere (None with ``parents=False``)
 
 Both read only frontier rows, in ascending chunks sized so the transient
 stays under ``budget`` bytes, so they also run at full size.
@@ -62,20 +62,26 @@ def multi_bfs_step_packed_ref(frontiers, adj_packed, alive, visited,
     return new, torch.where(new, parent, -1) if parents else None, reach
 
 
-def multi_bfs_step_ref(frontiers, adj, alive, visited,
+def multi_bfs_step_ref(frontiers, adj, alive, visited, parents: bool = True,
                        budget: int = _BUDGET):
     q = frontiers.shape[0]
     v = adj.shape[1]
-    parent = torch.full((q, v), INT32_MAX, dtype=torch.int32,
-                        device=adj.device)
+    dev = adj.device
+    parent = (torch.full((q, v), INT32_MAX, dtype=torch.int32, device=dev)
+              if parents else None)
+    reach = torch.zeros((q, v), dtype=torch.bool, device=dev)
     rows = torch.nonzero(frontiers.any(0)).flatten()   # ascending
     chunk = max(1, budget // max(1, q * v))
     for i in range(0, rows.numel(), chunk):
         rc = rows[i:i + chunk]
         # repro-lint: allow(traversable-predicate) — raw rows; `new` masks
         m = frontiers[:, rc, None] & (adj[rc] != 0)[None]    # [Q, c, V]
+        hit = m.any(1)
+        reach |= hit
+        if not parents:
+            continue
         first = rc[m.to(torch.int8).argmax(1)]          # first = smallest row
-        cand = torch.where(m.any(1), first.to(torch.int32), INT32_MAX)
+        cand = torch.where(hit, first.to(torch.int32), INT32_MAX)
         parent = torch.minimum(parent, cand)
-    new = (parent != INT32_MAX) & alive[None, :] & ~visited
-    return new, torch.where(new, parent, -1)
+    new = reach & alive[None, :] & ~visited
+    return new, torch.where(new, parent, -1) if parents else None

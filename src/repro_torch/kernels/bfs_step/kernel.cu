@@ -21,8 +21,9 @@ extern "C" int bfs_step_packed_launch(const void* frontier, const void* adj,
 extern "C" int bfs_step_launch(const void* frontier, const void* adj,
                                const void* alive, const void* visited,
                                void* new_out, void* parent, void* qm,
-                               void* act, int v_n, void* stream) {
+                               void* scratch, int v_n, void* stream) {
   return static_cast<int>(dense::launch(frontier, adj, alive, visited,
-                                        new_out, parent, qm, act, 1, v_n, v_n,
+                                        new_out, parent, qm, scratch, 1, v_n,
+                                        v_n, 1,
                                         static_cast<cudaStream_t>(stream)));
 }

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.bfs_multi_step.ops import dense_scratch
 from repro_torch.kernels.bfs_step.ref import bfs_step_packed_ref, bfs_step_ref
 
 launches = 0
@@ -69,10 +70,9 @@ def _launch_dense(frontier, adj, alive, visited):
         _build.check_tensor(t, name, dt, shape, dev)
     new = torch.empty((v,), dtype=torch.bool, device=dev)
     parent = torch.empty((v,), dtype=torch.int32, device=dev)
-    qmask = torch.empty((v,), dtype=torch.int64, device=dev)
-    active = torch.empty((-(-v // 32),), dtype=torch.int32, device=dev)
+    qmask, scratch = dense_scratch(1, v, dev)
     _build.launch("bfs_step", "bfs_step_launch", dev, frontier, adj, alive,
-                  visited, new, parent, qmask, active, v)
+                  visited, new, parent, qmask, scratch, v)
     dense_launches += 1
     return new, parent
 

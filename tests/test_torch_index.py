@@ -15,7 +15,8 @@ integer or a bool), on the CPU:
   * ``reach_session`` and ``reach_counts_session`` across a mutation and a
     refresh;
   * closure-mode ``multi_bfs`` on "hybrid_cuda" (routed through the B1/B2
-    wrappers, plain branches on the CPU) and "hybrid" against JAX.
+    wrappers, plain branches on the CPU), "hybrid", and "dense_cuda"
+    (through the B6 wrapper, without parents) against JAX.
 
 Capacity 70 (not a multiple of 32) with 66 keys, so a complete index has
 landmark columns 31 and 63 (the int32 sign bit of a label word), and
@@ -327,6 +328,36 @@ def test_closure_mode_routes_through_the_kernel_wrappers(graph, monkeypatch):
                                               err_msg=f"{be} {f}")
     assert calls["push"] > 0 and calls["pull"] > 0
     assert flags == {False}
+
+
+def test_dense_closure_runs_b6_without_parents(graph, monkeypatch):
+    """multi_bfs(parents=False) on "dense_cuda" calls the B6 wrapper (its
+    plain branch on the CPU) with ``parents=False`` on every superstep,
+    and equals JAX's closure mode on "pallas" on every field, forward and
+    reversed."""
+    from repro_torch.index.labels import _reversed
+    from repro.index.labels import _reversed as jax_reversed
+    import repro_torch.kernels.bfs_multi_step.ops as b6
+
+    flags = []
+
+    def spy(*a, **kw):
+        flags.append(kw.get("parents", True))
+        return dense(*a, **kw)
+
+    dense = b6.multi_bfs_step
+    monkeypatch.setattr(b6, "multi_bfs_step", spy)
+    g, t = graph
+    src = np.array([0, 2, 31, 40, 63, -1, 65, 5], np.int32)
+    dst = np.array([-1, -1, 5, -1, 0, 3, -1, 5], np.int32)
+    for jg, tg in ((g, t), (jax_reversed(g), _reversed(t))):
+        want = J.multi_bfs(jg, jnp.asarray(src), jnp.asarray(dst),
+                           backend="pallas", parents=False)
+        got = T.multi_bfs(tg, src, dst, backend="dense_cuda", parents=False)
+        for f, a, b in zip(want._fields, want, got):
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a),
+                                          err_msg=f"dense_cuda {f}")
+    assert flags and set(flags) == {False}
 
 
 def test_traced_session_observes_index_metrics(graph):

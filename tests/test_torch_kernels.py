@@ -9,7 +9,9 @@ mode and against the JAX ref.py oracles, bit for bit (tolerance 0):
                      without parents new, at Q > 64
   B3 bfs_step        new, parent and raw reach_words
   B6 bfs_multi_step  dense: new, parent (slice-relative), including a row
-                     slice R < V
+                     slice R < V, Q = 65 (two query groups), V not a
+                     multiple of 16 and a column every frontier row hits;
+                     without parents (closure mode) new alone
   B7 bfs_step        dense: new, parent
   B5 edge_update     packed: adj_packed, ecnt (bit set when vals > 0)
   B9 edge_update     dense: adj, ecnt (vals cast to uint8); both with
@@ -377,11 +379,17 @@ def _dense(words, v):
     return torch.from_numpy(np.ascontiguousarray(bits))
 
 
-DENSE_CASES = [(40, 1, 0.0), (40, 5, 0.3), (64, 5, 0.05), (64, 1, 0.3)]
+# (64, 65): a second query group of one query; (45, 3): V not a multiple
+# of 16 (the kernel's byte-wise tail); (48, 4, 1.0): every column hit by
+# every frontier row
+DENSE_CASES = [(40, 1, 0.0), (40, 5, 0.3), (64, 5, 0.05), (64, 1, 0.3),
+               (64, 65, 0.05), (45, 3, 0.05), (48, 4, 1.0)]
 
 
 @pytest.mark.parametrize("v,q,density", DENSE_CASES)
 def test_b6_dense_plain_matches_pallas(v, q, density):
+    """Also without parents (closure mode): ``new`` alone, ``None`` in
+    place of the parent."""
     words, _, fr, alive, vis = _case(v, q, density, seed=5 * v + q)
     adj = _dense(words, v)
     for r0, r1 in ((0, v), (8, 8 + (v - 8) // 2)):     # full, a row slice
@@ -402,9 +410,14 @@ def test_b6_dense_plain_matches_pallas(v, q, density):
             assert bool(new[0, 31]) and int(parent[0, 31]) == 0
         for x, y in zip(multi_bfs_step(*targs), (new, parent)):
             assert torch.equal(x, y)
+        for got in (multi_bfs_step_ref(*targs, parents=False),
+                    multi_bfs_step(*targs, parents=False)):
+            assert got[1] is None
+            np.testing.assert_array_equal(got[0].numpy(),
+                                          np.asarray(pallas[0]) > 0)
 
 
-@pytest.mark.parametrize("v,density", [(40, 0.3), (64, 0.05)])
+@pytest.mark.parametrize("v,density", [(40, 0.3), (64, 0.05), (45, 1.0)])
 def test_b7_dense_single_plain_matches_pallas(v, density):
     words, _, fr, alive, vis = _case(v, 1, density, seed=7 * v)
     adj = _dense(words, v)
@@ -519,6 +532,12 @@ def test_cuda_dense_and_edge_kernels_match_plain_versions(cuda_device, v, q,
             _t(vis).to(d)]
     for a, b in zip(multi_bfs_step(*args), multi_bfs_step_ref(*args)):
         assert torch.equal(a, b)
+    sl = [args[0][:, 3:].contiguous(), args[1][3:]] + args[2:]  # odd row
+    for a, b in zip(multi_bfs_step(*sl), multi_bfs_step_ref(*sl)):
+        assert torch.equal(a, b)
+    for x in (args, sl):
+        new, none = multi_bfs_step(*x, parents=False)
+        assert none is None and torch.equal(new, multi_bfs_step_ref(*x)[0])
     single = [args[0][0], args[1], args[2], args[3][0]]
     for a, b in zip(bfs_step(*single), bfs_step_ref(*single)):
         assert torch.equal(a, b)

@@ -1,28 +1,37 @@
 #!/usr/bin/env python3
-"""Time the port's BFS kernels B1, B2 and B3 against a parent commit's, on
-one NVIDIA GPU, in the same process.
+"""Time the port's BFS kernels B1, B2, B3, B6 and B7 against a parent
+commit's, on one NVIDIA GPU, in the same process.
 
     git archive <parent> | tar -x -C build/parent
     python3 tools/ab_bfs_kernels.py --parent build/parent [--seed 0]
+        [--kernels B6,B7]
 
 The parent's ``bfs_multi_step``, ``bfs_pull_step`` and ``bfs_step``
-libraries are built from ``<parent>/src/repro_torch/kernels/`` with the
-port's nvcc flags and called through their C entry points, with the
-signatures they had before the ``parents`` flag; this checkout's kernels
+libraries (those the chosen kernels need) are built from
+``<parent>/src/repro_torch/kernels/`` with the port's nvcc flags and
+called through their C entry points, with the signatures they had at
+commit bcb40cb (B1-B3 before the ``parents`` flag; B6/B7 with the
+``qm``/``act`` scratch of the row-split scan); this checkout's kernels
 run through its own wrappers. The inputs are captured from this
 checkout's path on the ``chip_smoke.py`` cell (a Graph500 SCALE-16 state
 of capacity 69,632): one Q = 64 traversal and one single-query traversal
-on "hybrid_cuda" (B1, B2, B3), and the two closures of one
-``build_index`` over the 1,024 highest-degree slots (B1 and B2 at
-Q = 1,024, which this checkout may run without parents).
+on "hybrid_cuda" (B1, B2, B3), the two closures of one ``build_index``
+over the 1,024 highest-degree slots (B1 and B2 at Q = 1,024, which this
+checkout may run without parents), and on the dense engine
+"dense_cuda" over the 4.849 GB uint8 view: one Q = 64 traversal (B6,
+group ``q64``), one Q = 64 closure to the end (B6 as that closure runs
+it, group ``q64c``) and one single-query traversal to the end (B7,
+group ``q1``).
 
 Every captured launch runs on both versions and the outputs must agree
 (``new`` and ``reach``; ``parent`` where both return it). The ``--top``
 largest launches of each group are then timed in turns parent, change,
 change, parent (CUDA events, L2 flushed between launches) and traced once
 each under torch.profiler for the device time of every sub-kernel
-(``chip_smoke.Timer``). Prints one line per group and writes everything
-to ``build/ab_bfs_kernels.json``.
+(``chip_smoke.Timer``), beside the launch's bound (``chip_smoke._work``:
+the bytes or operations these inputs need at the card's peak rates).
+Prints one line per group and writes everything to
+``build/ab_bfs_kernels.json``.
 """
 from __future__ import annotations
 
@@ -51,28 +60,33 @@ KERNELS = {
            "multi_bfs_step_packed_launch"),
     "B2": ("bfs_pull_step", "bfs_pull_step_rows", "bfs_pull_step_launch"),
     "B3": ("bfs_step", "bfs_step_packed_kernel", "bfs_step_packed_launch"),
+    "B6": ("bfs_multi_step", "multi_bfs_step", "multi_bfs_step_launch"),
+    "B7": ("bfs_step", "bfs_step", "bfs_step_launch"),
 }
+HYBRID = ("B1", "B2", "B3")
+DENSE = ("B6", "B7")
 
 
-def build_parent(parent: Path) -> dict:
-    """Compile the parent's three libraries, one nvcc each, in parallel."""
+def build_parent(parent: Path, keys) -> dict:
+    """Compile the parent's libraries that ``keys`` need, one nvcc each, in
+    parallel; returns kernel -> library."""
     from repro_torch.kernels import _build
 
     PARENT_BUILD.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for key, (pkg, _, _) in KERNELS.items():
+    for pkg in sorted({KERNELS[k][0] for k in keys}):
         so = PARENT_BUILD / f"{pkg}.so"
         src = parent / "src" / "repro_torch" / "kernels" / pkg / "kernel.cu"
-        procs[key] = (so, subprocess.Popen(
+        procs[pkg] = (so, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
-    for key, (so, proc) in procs.items():
+    for pkg, (so, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"parent {key} build failed:\n{out}")
-        libs[key] = ctypes.CDLL(str(so))
-    return libs
+            raise RuntimeError(f"parent {pkg} build failed:\n{out}")
+        libs[pkg] = ctypes.CDLL(str(so))
+    return {k: libs[KERNELS[k][0]] for k in keys}
 
 
 def _call(lib, fn, *args):
@@ -125,11 +139,33 @@ def parent_fn(key, lib):
         _call(lib, fn, f, adj, alive, vis, new, par, reach, fw, v, w)
         return new, par, reach
 
-    return {"B1": b1, "B2": b2, "B3": b3}[key]
+    def b6(fr, adj, alive, vis):
+        q, r = fr.shape
+        v = adj.shape[1]
+        g = -(-q // 64)
+        new = torch.empty((q, v), dtype=torch.bool, **e)
+        par = torch.empty((q, v), dtype=torch.int32, **e)
+        qm = torch.empty((g, r), dtype=torch.int64, **e)
+        act = torch.empty((g, -(-r // 32)), dtype=torch.int32, **e)
+        _call(lib, fn, fr, adj, alive, vis, new, par, qm, act, q, r, v)
+        return new, par
+
+    def b7(f, adj, alive, vis):
+        v = adj.shape[0]
+        new = torch.empty((v,), dtype=torch.bool, **e)
+        par = torch.empty((v,), dtype=torch.int32, **e)
+        qm = torch.empty((v,), dtype=torch.int64, **e)
+        act = torch.empty((-(-v // 32),), dtype=torch.int32, **e)
+        _call(lib, fn, f, adj, alive, vis, new, par, qm, act, v)
+        return new, par
+
+    return {"B1": b1, "B2": b2, "B3": b3, "B6": b6, "B7": b7}[key]
 
 
-def capture(st, pairs, hubs):
-    """{(kernel, group): [(args, kwargs)]} of this checkout's launches."""
+def capture(st, pairs, hubs, keys):
+    """{(kernel, group): [(args, kwargs)]} of this checkout's launches of
+    the kernels ``keys``. A dense kernel's adjacency (argument 1) is the
+    view its traversal built, kept uncopied."""
     import importlib
 
     import torch
@@ -137,9 +173,9 @@ def capture(st, pairs, hubs):
     from repro_torch.core import bfs, find_slots, multi_bfs
     from repro_torch.index import build_index
 
-    mods = {k: importlib.import_module(f"repro_torch.kernels.{p}.ops")
-            for k, (p, _, _) in KERNELS.items()}
-    originals = {k: getattr(mods[k], KERNELS[k][1]) for k in KERNELS}
+    mods = {k: importlib.import_module(f"repro_torch.kernels.{KERNELS[k][0]}"
+                                       ".ops") for k in keys}
+    originals = {k: getattr(mods[k], KERNELS[k][1]) for k in keys}
     got, tag = {}, {"g": None}
 
     def recorder(key):
@@ -149,22 +185,31 @@ def capture(st, pairs, hubs):
             return originals[key](*args, **kw)
         return rec
 
-    def slots(keys):
-        return find_slots(st, torch.tensor(keys, dtype=torch.int32,
+    def slots(ks):
+        return find_slots(st, torch.tensor(ks, dtype=torch.int32,
                                            device=st.device))
 
-    for k in KERNELS:
+    for k in keys:
         setattr(mods[k], KERNELS[k][1], recorder(k))
     try:
         sk, dk = slots([p[0] for p in pairs]), slots([p[1] for p in pairs])
-        tag["g"] = "q64"
-        multi_bfs(st, sk, dk, backend="hybrid_cuda")
-        tag["g"] = "q1"
-        bfs(st, sk[:1], -1, backend="hybrid_cuda")
-        tag["g"] = "q1024"
-        build_index(st, landmark_slots=hubs, backend="hybrid_cuda")
+        if set(keys) & set(HYBRID):
+            tag["g"] = "q64"
+            multi_bfs(st, sk, dk, backend="hybrid_cuda")
+            tag["g"] = "q1"
+            bfs(st, sk[:1], -1, backend="hybrid_cuda")
+            tag["g"] = "q1024"
+            build_index(st, landmark_slots=hubs, backend="hybrid_cuda")
+        if set(keys) & set(DENSE):
+            tag["g"] = "q64"
+            multi_bfs(st, sk, dk, backend="dense_cuda")
+            tag["g"] = "q64c"
+            multi_bfs(st, sk, torch.full_like(dk, -1), backend="dense_cuda",
+                      parents=False)
+            tag["g"] = "q1"
+            bfs(st, sk[:1], -1, backend="dense_cuda")
     finally:
-        for k in KERNELS:
+        for k in keys:
             setattr(mods[k], KERNELS[k][1], originals[k])
     cs.sync(torch)
     return got, originals
@@ -184,6 +229,8 @@ def size_of(key, args):
     if key == "B2":
         fw, _, alive, vis = args
         return int((~vis).sum())
+    if key in DENSE:   # the active rows: what the dense kernels read
+        return int(args[0].reshape(-1, args[0].shape[-1]).any(0).sum())
     return int(args[0].sum())
 
 
@@ -193,7 +240,13 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=4)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma-separated subset of " + ",".join(KERNELS))
     args = ap.parse_args(argv)
+    keys = [k for k in args.kernels.split(",") if k]
+    unknown = set(keys) - set(KERNELS)
+    if unknown:
+        ap.error(f"unknown kernels {sorted(unknown)}")
     import torch
 
     if not torch.cuda.is_available():
@@ -201,7 +254,7 @@ def main(argv=None) -> int:
         return 2
     t_all = time.perf_counter()
     card = cs.phase_device(torch)
-    libs = build_parent(args.parent)
+    libs = build_parent(args.parent, keys)
     rng = np.random.default_rng(args.seed)
     from repro_torch.convert import state_from_numpy
 
@@ -211,7 +264,7 @@ def main(argv=None) -> int:
     pairs = list(zip(rng.choice(deg_src, cs.QUERIES).tolist(),
                      rng.integers(0, 1 << cs.SCALE, cs.QUERIES).tolist()))
     hubs = cs.hub_slots(st, cs.INDEX_LANDMARKS)
-    captured, change = capture(st, pairs, hubs)
+    captured, change = capture(st, pairs, hubs, keys)
     timer = cs.Timer(torch)
     results = []
     for (key, group), calls in sorted(captured.items()):
@@ -231,6 +284,8 @@ def main(argv=None) -> int:
 
             def c():
                 return change[key](*a, **kw)
+            nbytes, nops, peak = cs._work(torch, key, a, c())
+            bound = max(nbytes / cs.HBM_BYTES_PER_S, nops / peak) * 1e3
             t = [timer.ms(f, args.reps) for f in (p, c, c, p)]
             pd, psub = timer.device_ms(p, args.reps)
             cd, csub = timer.device_ms(c, args.reps)
@@ -244,6 +299,7 @@ def main(argv=None) -> int:
             else:
                 cp_ms = cp_dev = None
             rows.append({"shape": [list(x.shape) for x in a[:2]],
+                         "size": size_of(key, a), "bound_ms": bound,
                          "kwargs": {k: str(v) for k, v in kw.items()},
                          "parent_ms": [t[0], t[3]], "change_ms": [t[1], t[2]],
                          "parent_device_ms": pd, "change_device_ms": cd,
@@ -263,6 +319,7 @@ def main(argv=None) -> int:
             "change_ms": mean(mean(r["change_ms"]) for r in rows),
             "parent_device_ms": avg(lambda r: r["parent_device_ms"]),
             "change_device_ms": avg(lambda r: r["change_device_ms"]),
+            "bound_ms": mean(r["bound_ms"] for r in rows),
             "change_with_parents_device_ms": avg(
                 lambda r: r["change_with_parents_device_ms"]),
             "parent_sub_ms": {k: mean(r["parent_sub_ms"].get(k, 0.0)
@@ -284,7 +341,8 @@ def main(argv=None) -> int:
                f"{fmt(pdm) if pdm is not None else 'not measured'} "
                f"[{subs(summary['parent_sub_ms'])}] / change "
                f"{fmt(cdm) if cdm is not None else 'not measured'} "
-               f"[{subs(summary['change_sub_ms'])}]"
+               f"[{subs(summary['change_sub_ms'])}]; bound "
+               f"{summary['bound_ms']:.4f} ms"
                + (f"; change with parents device ms "
                   f"{fmt(summary['change_with_parents_device_ms'])}"
                   if summary["change_with_parents_device_ms"] is not None
