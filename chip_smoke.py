@@ -20,8 +20,10 @@ Phases (each prints lines; the last line is the JSON result):
      join) and B8 (dense label join) against theirs and against each other
      over Q in {1, 5, 64, 1000}, L in {31, 32, 1024, 1030}, densities
      0 / 0.01 / 0.3, a common landmark in column 31 and all-zero OUT rows;
-     then multi_bfs / bfs on "hybrid_cuda" against "hybrid" at V = 4096,
-     Q = 8 on a Graph500 graph, every result field
+     B4 by slot (what ``query_reach`` launches) against its plain version
+     and against B4 on the rows it gathers, with slots of -1 and past the
+     end and dead endpoints; then multi_bfs / bfs on "hybrid_cuda" against
+     "hybrid" at V = 4096, Q = 8 on a Graph500 graph, every result field
   2w. B1, B2 and B3 against their plain versions at Q = 1,024 and 1,025
      on a random graph (V = 2048) and on skewed graphs (V = 20,480 and
      20,001, wide enough for every form of B1): rows with every word
@@ -29,6 +31,10 @@ Phases (each prints lines; the last line is the JSON result):
      for its staged lists; full and row slices, with and without parents
      (``parents=False`` also equals the launch with parents on new and
      reach)
+  2s. B3 against its plain version at V in {2000, 20001, 69632, 90000}
+     (W not a multiple of 4; the cell's; two frontier passes) on skewed
+     graphs, for frontiers of the rows = 31 (mod 32), none, every row (many
+     rounds of its shared row list), one bit-31-only row and 5% of the rows
   2b. closure routing: closure-mode multi_bfs (Q = 256) and build_index
      (the 256 highest-degree slots) on "hybrid_cuda" against "hybrid", and
      on "dense_cuda" (B6, launched without parents) against
@@ -70,7 +76,15 @@ Phases (each prints lines; the last line is the JSON result):
      B2 also on the Q = 1,024
      launches of one ``build_index`` over phase 7's landmarks (closure
      mode, no parents): every launch against its plain version, the 3
-     largest timed (``q1024_*`` keys of the kernels line)
+     largest timed (``q1024_*`` keys of the kernels line). B2's Q = 64 and
+     Q = 1 launches are timed apart (the row's main numbers and its
+     ``q1_*`` keys). B4 is its slot form, the one the sessions launch,
+     also timed in turns with the gather and gathered-rows entry it
+     replaced (``paired_*_ms`` keys), with the count
+     of CUDA kernels one ``query_reach`` on the probe launches
+     (``query_reach_kernels``, torch.profiler). Every row carries the
+     launch floor: a one-element ``torch.zeros(1)`` fill's device ms and
+     its back-to-back CUDA-events ms (``floor_device_ms``, ``floor_ms``)
   7. the reachability index at full size on the phase-3 state:
      ``build_index`` on the 1,024 highest-degree alive slots, computed here
      and passed as ``landmark_slots`` (``pick_landmarks`` follows the JAX
@@ -87,8 +101,9 @@ Phases (each prints lines; the last line is the JSON result):
      and 6 use. Every answer equals scipy's BFS on the state it was
      answered on; every refreshed index equals a full rebuild. The
      counts are read around the build and refreshes alone (B1 and B2 must
-     have run there) and around the sessions alone (B4 must have run
-     there), never around the verification rebuilds. No path serves
+     have run there) and around the sessions alone (B4 by slot must have
+     run there, and equals its plain version on the last probe), never
+     around the verification rebuilds. No path serves
      through B8, as in the JAX package: its launches there are 0
 
 It imports nothing of JAX and nothing of the JAX package. It exits non-zero
@@ -126,6 +141,9 @@ DENSE_QS = (64, 65, 129)     # B6 over one, two and three query groups
 # (V, skewed): from V = 16,385 on, Q / 32 x 128-word column blocks fills
 # 132 SMs, so B1's closure launches take its query-grouped form
 WIDE_VS = ((2048, False), (20480, True), (20001, True))
+# B3's frontier cases: W = 63 and 626 (not a multiple of 4), 2,176 (the
+# cell's), and 2,813 (two of B3's 81,920-row frontier passes)
+SINGLE_VS = (2000, 20001, 69632, 90000)
 WIDE_TIMED = 3               # Q = 1,024 launches timed per kernel in phase 6
 WIDE_BUDGET = 1 << 30        # the plain versions' transient at Q = 1,024
 BFS_KERNELS = ("B1", "B2", "B3")
@@ -321,7 +339,7 @@ def _counters():
     from repro_torch.kernels.label_join import ops as lj
 
     return {"B1": (b1, "launches"), "B2": (b2, "launches"),
-            "B3": (b3, "launches"), "B4": (lj, "packed_launches"),
+            "B3": (b3, "launches"), "B4": (lj, "slot_launches"),
             "B5": (eu, "packed_launches"), "B6": (b1, "dense_launches"),
             "B7": (b3, "dense_launches"), "B8": (lj, "dense_launches"),
             "B9": (eu, "dense_launches")}
@@ -519,7 +537,8 @@ def edge_update_cases(torch, rng, adj, bits, v):
 def phase_index_kernels(torch, rng):
     """The kernels at the index's shapes against their plain versions, bit
     for bit: B1 and B2 at the closures' Q = 1024; B4 and B8, and B4 == B8
-    on the same labels packed and unpacked."""
+    on the same labels packed and unpacked; B4 by slot, and equal to B4 on
+    the rows it gathers."""
     from repro_torch.core.graph import pack_bits
     from repro_torch.kernels.bfs_multi_step.ops import (
         multi_bfs_step_packed_kernel)
@@ -528,9 +547,11 @@ def phase_index_kernels(torch, rng):
     from repro_torch.kernels.bfs_pull_step.ops import bfs_pull_step_rows
     from repro_torch.kernels.bfs_pull_step.ref import bfs_pull_step_ref
     from repro_torch.kernels.label_join.ops import (label_join,
-                                                    label_join_packed)
+                                                    label_join_packed,
+                                                    label_join_slots)
     from repro_torch.kernels.label_join.ref import (label_join_packed_ref,
-                                                    label_join_ref)
+                                                    label_join_ref,
+                                                    label_join_slots_ref)
 
     v, bq = 2048, 1024
     adj_np = random_words(rng, v, 0.01)
@@ -569,9 +590,28 @@ def phase_index_kernels(torch, rng):
                      f"B4 q={q} l={l}")
                 same(packed, dense, f"B4 != B8 q={q} l={l}")
                 cases += 1
+    # B4 by slot: slots of -1 and past the end, dead endpoints, the sign bit
+    slot_cases = 0
+    for l in (31, 1024, 1030):
+        labels = []
+        for _ in range(2):
+            bits = torch.from_numpy(rng.random((v, l)) < 0.01).to(DEVICE)
+            bits[::7, min(31, l - 1)] = True
+            labels.append(pack_bits(bits))
+        alive_l = torch.from_numpy(rng.random(v) < 0.8).to(DEVICE)
+        for q in (1, 64, 1000):
+            src, dst = (torch.from_numpy(rng.integers(-1, v + 3, q).astype(
+                np.int32)).to(DEVICE) for _ in range(2))
+            args = (*labels, alive_l, src, dst)
+            got = label_join_slots(*args)
+            same(got, label_join_slots_ref(*args), f"B4 by slot q={q} l={l}")
+            same(got[:2], label_join_packed(*gathered_rows(args)),
+                 f"B4 by slot != B4 on gathered rows q={q} l={l}")
+            slot_cases += 1
     sync(torch)
     log(f"index kernels vs plain: B1 and B2 at Q={bq} V={v}; {cases} cases "
-        f"x (B4, B8, B4 == B8); bit-identical (tolerance 0)")
+        f"x (B4, B8, B4 == B8); {slot_cases} cases x (B4 by slot, B4 by "
+        f"slot == B4 on the gathered rows); bit-identical (tolerance 0)")
 
 
 def skewed_words(rng, v: int):
@@ -676,6 +716,39 @@ def phase_wide_kernels(torch, rng):
         f"no parents == parents on new/reach) of B1 and B2 at Q in "
         f"{WIDE_QS}, V in {[v for v, _ in WIDE_VS]}, full and sliced, skewed "
         f"rows (every word / only bit 31 / lists past B2's stage), and B3; "
+        f"bit-identical (tolerance 0)")
+
+
+def phase_single_push(torch, rng):
+    """B3 against its plain version on the frontiers that stress its row
+    list: only rows = 31 (mod 32), none, every row (past one 4,096-row
+    round of the shared list, and past one 81,920-row frontier pass at
+    V = 90,000), 5% of the rows and one row; over skewed graphs (a row with
+    every word nonzero, a row with only bit 31 of its words), V not a
+    multiple of 32 and W not a multiple of 4 (the word-wise loads)."""
+    from repro_torch.kernels.bfs_step.ops import bfs_step_packed_kernel
+    from repro_torch.kernels.bfs_step.ref import bfs_step_packed_ref
+
+    cases = 0
+    for v in SINGLE_VS:
+        out_np, _ = skewed_words(rng, v)
+        adj = torch.from_numpy(out_np.view(np.int32)).to(DEVICE)
+        alive = torch.from_numpy(rng.random(v) < 0.9).to(DEVICE)
+        alive[[1, 2, 3, 4]] = True
+        vis = torch.from_numpy(rng.random(v) < 0.3).to(DEVICE)
+        fronts = {"rows 31 mod 32": np.arange(31, v, 32), "empty": [],
+                  "every row": np.arange(v), "one row": [3],
+                  "5%": np.flatnonzero(rng.random(v) < 0.05)}
+        for what, rows in fronts.items():
+            fr = torch.zeros(v, dtype=torch.bool, device=DEVICE)
+            fr[torch.as_tensor(np.asarray(rows, np.int64), device=DEVICE)] = True
+            args = (fr, adj, alive, vis)
+            same(bfs_step_packed_kernel(*args), bfs_step_packed_ref(*args),
+                 f"B3 v={v} frontier {what}")
+            cases += 1
+    sync(torch)
+    log(f"single push vs plain: {cases} cases of B3 (V in {SINGLE_VS}; "
+        f"frontiers of rows = 31 mod 32, none, every row, one row, 5%) "
         f"bit-identical (tolerance 0)")
 
 
@@ -998,7 +1071,8 @@ def phase_main(torch, rng, rounds: int):
         f"single sessions equal scipy BFS (live edges {checked_edges[-1]})")
     log(f"main-path launches: {launches}; per get_paths_session "
         f"{per_session}; per get_path_session {per_single}")
-    return cur["st"], launches, pair_sets[0], batches[0], deg_src
+    single = {k: sum(p[k] for p in per_single) for k in launches}
+    return cur["st"], launches, single, pair_sets[0], batches[0], deg_src
 
 
 def same_result(got, want, what):
@@ -1103,9 +1177,11 @@ def small_refresh_edge(torch, index, st):
 def phase_index(torch, st, deg_src, rng):
     """The reachability index at full size on the phase-3 state."""
     from repro_torch.convert import op_batch_from_numpy
-    from repro_torch.core import OP_ADD_E, apply_ops_fast
+    from repro_torch.core import OP_ADD_E, apply_ops_fast, find_slots
     from repro_torch.index import build_index, reach_session, refresh
     from repro_torch.index.labels import live_degrees
+    from repro_torch.kernels.label_join.ops import label_join_slots
+    from repro_torch.kernels.label_join.ref import label_join_slots_ref
 
     n = 1 << SCALE
     sync(torch)
@@ -1210,6 +1286,13 @@ def phase_index(torch, st, deg_src, rng):
     del full, full_st
     require_launched(closure, ("B1", "B2"), "in the build and refreshes")
     require_launched(serve, ("B4",), "in the index-served sessions")
+    # the sessions' B4 (by slot) against its plain version on the probe
+    probe = [find_slots(cur["st"], torch.tensor(
+        [p[i] for p in pairs], dtype=torch.int32, device=DEVICE))
+        for i in (0, 1)]
+    args = (index.out_label, index.in_label, index.alive, *probe)
+    same(label_join_slots(*args), label_join_slots_ref(*args),
+         "B4 by slot on the probe")
     launches = {k: closure[k] + serve[k] for k in closure}
     med = statistics.median
     log(f"index medians over {INDEX_ROUNDS} rounds: build_index "
@@ -1314,8 +1397,8 @@ KERNEL_META = {  # name, package, wrapper that launches, plain version,
     "B3": ("bfs_step_packed", "bfs_step", "bfs_step_packed_kernel",
            "bfs_step_packed_ref", "src/repro/kernels/bfs_step/kernel.py:165",
            NO_PARENT_CALL),
-    "B4": ("label_join_packed", "label_join", "label_join_packed",
-           "label_join_packed_ref",
+    "B4": ("label_join_packed", "label_join", "label_join_slots",
+           "label_join_slots_ref",
            "src/repro/kernels/label_join/kernel.py:150",
            "no one PyTorch call gives hits and hub together, and torch has "
            "no popcount"),
@@ -1356,7 +1439,7 @@ def edge_batch_lanes(torch, st, rng):
 
 
 def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
-                       launches, timer, rng):
+                       launches, q1_path, timer, rng):
     """Time each kernel on inputs captured from one Q=64 traversal of
     ``st`` on "hybrid_cuda" over ``pairs`` (B1-B3), the traversal of the
     last dense-engine session's ``dpairs`` on "dense_cuda" (B6), one
@@ -1364,7 +1447,10 @@ def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
     ``index`` on ``ist`` (B4); B8, which no path launches,
     on that probe's label words unpacked; B5 and B9, which no path
     launches either, on ``st``'s words and dense view with one equal-mix
-    batch's edge lanes (timed in place on copies)."""
+    batch's edge lanes (timed in place on copies). B2's single-query
+    launches are timed apart (``q1_*`` keys; ``q1_path`` of them ran on
+    the main path), every row carries the launch floor (``floor_*``) and
+    B4's the CUDA kernels one ``query_reach`` on the probe launches."""
     import importlib
 
     from repro_torch.core import bfs, find_slots, multi_bfs
@@ -1409,21 +1495,25 @@ def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
             # one single-query traversal to the end (B3 pushes, then B2
             # pulls; B7 pushes throughout)
             bfs(st, sk[:1], -1, backend=be)
-        query_reach(index, slots(ist, [p[0] for p in ipairs]),
-                    slots(ist, [p[1] for p in ipairs]))
+        isrc = slots(ist, [p[0] for p in ipairs])
+        idst = slots(ist, [p[1] for p in ipairs])
+        query_reach(index, isrc, idst)
         # the closures of phase 7's build: B1 and B2 at Q = 1,024
         sink["to"] = wide
         build_index(st, landmark_slots=index.landmarks)
     finally:
         for k in traced:
             setattr(mods[k], KERNEL_META[k][2], originals[k])
+    # B8 on the rows the probe joined
     captured["B8"] = [tuple(unpack_bits(a, index.num_landmarks)
-                            .to(torch.int32) for a in c)
+                            .to(torch.int32) for a in gathered_rows(c))
                       for c in captured["B4"]]
     lanes = edge_batch_lanes(torch, st, rng)
     captured["B5"] = [(st.adj_packed, st.ecnt) + lanes]
     captured["B9"] = [(captured["B6"][0][1], st.ecnt) + lanes]
     sync(torch)
+    qr_kernels = query_reach_kernels(torch, index, isrc, idst)
+    floor = launch_floor(torch)
 
     out = []
     for key, calls in captured.items():
@@ -1434,36 +1524,15 @@ def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
         # the edge writes are checked through their copying wrappers and
         # timed in place
         check = getattr(mods[key], name) if key in EDGE_KERNELS else kern
-        ms, dms, subs, pms, bms, bys, err = [], [], [], [], [], [], 0
-        bare = {"ms": [], "dms": [], "subs": []}   # B6 without parents
-        for args in calls:
-            got, want = check(*args), plain[key](*args)
-            same(got, want, f"{name}: kernel != plain at full size")
-            err = max(err, max_abs_err(torch, got, want))
-            nbytes, nops, peak = _work(torch, key, args, want)
-            del got, want
-            if key in EDGE_KERNELS:
-                args = (args[0].clone(), args[1].clone()) + tuple(args[2:])
-            ms.append(timer.ms(lambda: kern(*args), 20))
-            d, sub = timer.device_ms(lambda: kern(*args), 20)
-            dms.append(d)
-            subs.append(sub)
-            if key == "B6":
-                same(kern(*args, parents=False),
-                     plain[key](*args, parents=False),
-                     f"{name} without parents at full size")
-                bare["ms"].append(timer.ms(
-                    lambda: kern(*args, parents=False), 20))
-                d, sub = timer.device_ms(lambda: kern(*args, parents=False),
-                                         20)
-                if d is not None:
-                    bare["dms"].append(d)
-                bare["subs"].append(sub)
-            pms.append(timer.ms(lambda: plain[key](*args), 2))
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / peak
-            bms.append(max(t_bytes, t_ops) * 1e3)
-            bys.append("bytes" if t_bytes >= t_ops else "operations")
-            del args
+        q1 = []
+        if key == "B2":   # the single-query launches (Q = 1) apart
+            q1 = [c for c in calls if c[0].shape[0] == 1]
+            calls = [c for c in calls if c[0].shape[0] > 1]
+            if not q1 or not calls:
+                raise AssertionError(f"{name}: captured {len(calls)} Q > 1 "
+                                     f"and {len(q1)} Q = 1 launches")
+        t = time_calls(torch, key, calls, check, kern, plain[key], timer)
+        ms, dms, subs, pms, bms, bys, err, bare = t
         if key == "B1":
             rows = [c[0].sum(1).float() for c in calls]
             big = max(rows, key=lambda r: float(r.sum()))
@@ -1503,8 +1572,14 @@ def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
             "plain_ms": statistics.mean(pms),
             "bound_ms": statistics.mean(bms),
             "bound_by": max(set(bys), key=bys.count), "library_ms": None,
-            "device_sub_ms": sub_means(subs),
+            "device_sub_ms": sub_means(subs), **floor,
         })
+        if q1:
+            out[-1].update(single_times(torch, key, q1, check, kern,
+                                        plain[key], timer, q1_path))
+        if key == "B4":
+            out[-1]["query_reach_kernels"] = qr_kernels["kernels"]
+            out[-1].update(b4_paired(torch, captured["B4"], timer))
         if bare["ms"]:
             out[-1].update({
                 "no_parents_ms": statistics.mean(bare["ms"]),
@@ -1515,6 +1590,184 @@ def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
             out[-1].update(wide_times(torch, key, wide[key], kern,
                                       plain[key], timer))
     return out
+
+
+def time_calls(torch, key, calls, check, kern, plain, timer):
+    """Each launch in ``calls`` against its plain version, then timed:
+    (events ms, device ms, sub-kernel ms, plain ms, bound ms, bound_by,
+    max_abs_err) per launch, and for B6 the same launches without parents
+    ({"ms", "dms", "subs"}, empty for the other kernels)."""
+    name = KERNEL_META[key][0]
+    ms, dms, subs, pms, bms, bys, err = [], [], [], [], [], [], 0
+    bare = {"ms": [], "dms": [], "subs": []}   # B6 without parents
+    for args in calls:
+        got, want = check(*args), plain(*args)
+        same(got, want, f"{name}: kernel != plain at full size")
+        err = max(err, max_abs_err(torch, got, want))
+        nbytes, nops, peak = _work(torch, key, args, want)
+        del got, want
+        if key in EDGE_KERNELS:
+            args = (args[0].clone(), args[1].clone()) + tuple(args[2:])
+        ms.append(timer.ms(lambda: kern(*args), 20))
+        d, sub = timer.device_ms(lambda: kern(*args), 20)
+        dms.append(d)
+        subs.append(sub)
+        if key == "B6":
+            same(kern(*args, parents=False), plain(*args, parents=False),
+                 f"{name} without parents at full size")
+            bare["ms"].append(timer.ms(lambda: kern(*args, parents=False),
+                                       20))
+            d, sub = timer.device_ms(lambda: kern(*args, parents=False), 20)
+            if d is not None:
+                bare["dms"].append(d)
+            bare["subs"].append(sub)
+        pms.append(timer.ms(lambda: plain(*args), 2))
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / peak
+        bms.append(max(t_bytes, t_ops) * 1e3)
+        bys.append("bytes" if t_bytes >= t_ops else "operations")
+        del args
+    return ms, dms, subs, pms, bms, bys, err, bare
+
+
+def gathered_rows(args):
+    """(out_rows, in_rows) int32[Q, W]: the rows B4 by slot joins, gathered
+    (zero where an endpoint is not ok)."""
+    from repro_torch.kernels.label_join.ref import endpoint_ok, slot_rows
+
+    out_label, in_label, alive, src, dst = args
+    return (slot_rows(out_label, src, endpoint_ok(alive, src)),
+            slot_rows(in_label, dst, endpoint_ok(alive, dst)))
+
+
+def b4_paired(torch, calls, timer, rounds=3):
+    """B4 by slot against the step it replaced on the probe's launches:
+    ``query_reach``'s gather (``endpoint_ok`` and ``slot_rows`` in torch)
+    and the gathered-rows entry ``label_join_packed``, and that entry
+    alone, timed by CUDA events in turns rows, step, slots, slots, step,
+    rows, ``rounds`` times: ``paired_*_ms`` keys (one mean per turn)."""
+    from repro_torch.kernels.label_join.ops import (label_join_packed,
+                                                    label_join_slots)
+
+    t = {"slots": [], "step": [], "rows": []}
+    for args in calls:
+        rows = gathered_rows(args)
+        fns = {"slots": lambda: label_join_slots(*args),
+               "step": lambda: label_join_packed(*gathered_rows(args)),
+               "rows": lambda: label_join_packed(*rows)}
+        for _ in range(rounds):
+            for k in ("rows", "step", "slots", "slots", "step", "rows"):
+                t[k].append(timer.ms(fns[k], 20))
+    res = {f"paired_{k}_ms": v for k, v in t.items()}
+    log("  B4 in turns on the same probe (CUDA events, ms/launch): by slot "
+        + ", ".join(f"{x:.4f}" for x in t["slots"]) + "; gather + "
+        "gathered-rows entry " + ", ".join(f"{x:.4f}" for x in t["step"])
+        + "; gathered-rows entry alone "
+        + ", ".join(f"{x:.4f}" for x in t["rows"]))
+    return res
+
+
+def single_times(torch, key, calls, check, kern, plain, timer, path):
+    """The kernel's single-query (Q = 1) launches apart: ``q1_*`` keys of
+    the kernels line (``q1_path_launches``: its Q = 1 launches on the main
+    path, those of the single sessions)."""
+    ms, dms, subs, pms, bms, _, err, _ = time_calls(torch, key, calls, check,
+                                                    kern, plain, timer)
+    traced = [d for d in dms if d is not None]
+    res = {"q1_launches": len(calls), "q1_path_launches": path,
+           "q1_max_abs_err": err, "q1_ms": statistics.mean(ms),
+           "q1_device_ms": statistics.mean(traced) if traced else None,
+           "q1_plain_ms": statistics.mean(pms),
+           "q1_bound_ms": statistics.mean(bms)}
+    log(f"{KERNEL_META[key][0]} ({key}) at Q = 1: {len(calls)} captured "
+        f"launches ({path} on the main path's single sessions), max_abs_err "
+        f"{err}: kernel {res['q1_ms']:.4f} ms/launch (CUDA events), device "
+        + (f"{res['q1_device_ms']:.4f}" if traced else "not measured")
+        + f" ms [{sub_line(subs)}], plain {res['q1_plain_ms']:.3f} ms, "
+        f"bound {res['q1_bound_ms']:.6f} ms")
+    return res
+
+
+def launch_floor(torch, reps=200):
+    """What one launch costs at the least: ``reps`` one-element
+    ``torch.zeros(1, device="cuda")`` fills back to back, timed by CUDA
+    events (the host's enqueue of one PyTorch launch; behind an L2 flush
+    the enqueue hides and the fill reads 0) and by the fill kernel's own
+    device time in a profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def fills():
+        for _ in range(reps):
+            torch.zeros(1, device="cuda")
+
+    fills()
+    sync(torch)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fills()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fills()
+        sync(torch)
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    path = TRACE_DIR / "launch_floor.json"
+    prof.export_chrome_trace(str(path))
+    _, per_name = _busy_ms(path)
+    dms = sum(per_name.values()) / reps if per_name else None
+    log(f"launch floor (torch.zeros(1) fill): {ms:.4f} ms/launch back to "
+        f"back (CUDA events), device "
+        + (f"{dms:.4f} ms" if dms is not None else "not measured"))
+    return {"floor_ms": ms, "floor_device_ms": dms}
+
+
+def query_reach_kernels(torch, index, src, dst):
+    """The CUDA kernels (and copies and fills) one ``query_reach`` on these
+    slot tensors launches, from a torch.profiler trace after a warm-up
+    call: {"kernels": n, "copies": n, "fills": n}, every device event after
+    the trace's leading ``torch.zeros(1)`` fill (the names are logged);
+    n["kernels"] is None when the trace holds no B4 launch. The fill is
+    there because a trace may drop its first device event: if it is
+    missing, every event counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.index import query_reach
+
+    query_reach(index, src, dst)
+    sync(torch)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")
+        sync(torch)
+        query_reach(index, src, dst)
+        sync(torch)
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    path = TRACE_DIR / "query_reach.json"
+    prof.export_chrome_trace(str(path))
+    events = sorted((e for e in json.loads(path.read_text())["traceEvents"]
+                     if e.get("ph") == "X" and e.get("cat") in (
+                         "kernel", "gpu_memcpy", "gpu_memset")),
+                    key=lambda e: e["ts"])
+    if events and ("Fill" in events[0]["name"]
+                   or events[0]["cat"] == "gpu_memset"):
+        events = events[1:]   # the sentinel
+    joined = any("label_join_slots" in e["name"] for e in events)
+    n = {k: sum(e["cat"] == c for e in events) for k, c in
+         (("kernels", "kernel"), ("copies", "gpu_memcpy"),
+          ("fills", "gpu_memset"))}
+    if not joined:
+        n["kernels"] = None
+    names = [re.split(r"[(<]", re.sub(r"^void |\(anonymous namespace\)::",
+                                      "", e["name"]))[0][:48]
+             for e in events if e["cat"] == "kernel"]
+    log(f"query_reach on the phase-7 probe (Q = {src.numel()}): "
+        + (f"{n['kernels']} CUDA kernels, {n['copies']} copies, "
+           f"{n['fills']} fills (torch.profiler): {names}"
+           if joined else
+           "kernels not measured (the trace holds no B4 launch)"))
+    return n
 
 
 def pull_staged_mb(args):
@@ -1597,12 +1850,24 @@ def _work(torch, key, args, want):
     adjacency only the rows or words the data requires, for the IN labels
     only the words whose OUT word is nonzero, and for the edge writes only
     the touched cells or words and ecnt rows."""
-    if key in ("B4", "B8"):
+    if key == "B4":    # by slot: the slots, their alive bytes, the OUT
+        # rows of the pairs with both endpoints ok, the IN words under a
+        # nonzero OUT word
+        out_label, _, alive, src, dst = args
+        _, _, sok, dok = want
+        ok = sok & dok
+        out_rows = out_label[src[ok].long()]
+        need_in = int((out_rows != 0).sum())
+        outs = sum(t.numel() * t.element_size() for t in want)
+        nbytes = (2 * (4 + alive.element_size()) * src.numel()
+                  + out_rows.numel() * 4 + need_in * 4 + outs)
+        return nbytes, 2 * need_in, ALU_OPS_PER_S
+    if key == "B8":
         out_rows, _ = args
         need_in = int((out_rows != 0).sum())
         outs = sum(t.numel() * t.element_size() for t in want)
         nbytes = out_rows.numel() * 4 + need_in * 4 + outs
-        return nbytes, (2 if key == "B4" else 1) * need_in, ALU_OPS_PER_S
+        return nbytes, need_in, ALU_OPS_PER_S
     if key in EDGE_KERNELS:
         adj, _, rows, cols, _, mask = args
         fire = mask > 0
@@ -1671,9 +1936,11 @@ def main(argv=None) -> int:
     phase_kernels(torch, rng, dense_rng, np.random.default_rng([args.seed, 4]))
     phase_index_kernels(torch, index_rng)
     phase_wide_kernels(torch, np.random.default_rng([args.seed, 3]))
+    phase_single_push(torch, np.random.default_rng([args.seed, 5]))
     phase_hybrid(torch, rng)
     phase_closure(torch, index_rng)
-    st, launches, pairs, batch, deg_src = phase_main(torch, rng, ROUNDS)
+    st, launches, single, pairs, batch, deg_src = phase_main(torch, rng,
+                                                             ROUNDS)
     dlaunches, dpairs = phase_dense(torch, st, deg_src, dense_rng)
     phase_profile(torch, main_path_work(st, pairs, batch))
     index, ist, ipairs, ilaunches = phase_index(torch, st, deg_src,
@@ -1685,7 +1952,8 @@ def main(argv=None) -> int:
     launches.update({k: ilaunches[k] for k in ("B4", "B8")})
     timer = Timer(torch)
     kernels = phase_kernel_times(torch, st, pairs, dpairs, index, ist,
-                                 ipairs, launches, timer, dense_rng)
+                                 ipairs, launches, single["B2"], timer,
+                                 dense_rng)
     log(f"card: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

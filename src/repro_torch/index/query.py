@@ -1,15 +1,18 @@
 """Index-side query answering, in PyTorch: the port of ``repro.index.query``
 (DESIGN.md §9).
 
-A batch of Q (src, dst) slot pairs is answered by gathering the sources'
-OUT label words and the destinations' IN label words into two [Q, W]
-slabs and joining them: hits = popcount of the AND-ed words, hub = the
-smallest common landmark. No traversal and no adjacency read.
+A batch of Q (src, dst) slot pairs is answered by joining the sources'
+OUT label words with the destinations' IN label words: hits = popcount of
+the AND-ed words, hub = the smallest common landmark. No traversal and no
+adjacency read.
 
 Join backends:
 
-  "cuda"   B4, the packed label-join kernel (plain version on a CPU index)
-  "torch"  its plain version
+  "cuda"   B4 by slot (``label_join_slots``): one launch tests the
+           endpoints, reads the two label rows of each pair and joins them
+           (its plain version on a CPU index)
+  "torch"  its plain version: ``endpoint_ok`` and ``slot_rows`` gather the
+           [Q, W] slabs, ``label_join_packed_ref`` joins them
 
 ``backend=None`` resolves by the labels' device: "cuda" on a CUDA index,
 "torch" on a CPU index. JAX serves with its jnp reference by default
@@ -40,23 +43,14 @@ def default_join_backend(device) -> str:
     return "cuda" if torch.device(device).type == "cuda" else "torch"
 
 
-def _join(out_words, in_words, backend: str):
+def _join(index, src, dst, backend: str):
+    """(hits, hub, src_ok, dst_ok) of the pairs."""
     if backend not in JOIN_BACKENDS:
         raise ValueError(f"unknown label_join backend {backend!r}")
     # looked up at call time, like core.bfs's step functions
-    fn = {"cuda": _kernels.label_join_packed,
-          "torch": _plain.label_join_packed_ref}[backend]
-    return fn(out_words, in_words)
-
-
-def _endpoint_ok(index, slots):
-    return (slots >= 0) & index.alive[slots.clamp(0, index.capacity - 1)]
-
-
-def _rows(index, labels, slots, ok):
-    """The label words of ``slots``, zero where the endpoint is not ok."""
-    return torch.where(ok[:, None],
-                       labels[slots.clamp(0, index.capacity - 1)], 0)
+    fn = {"cuda": _kernels.label_join_slots,
+          "torch": _plain.label_join_slots_ref}[backend]
+    return fn(index.out_label, index.in_label, index.alive, src, dst)
 
 
 def query_reach(index, src_slots, dst_slots, *, backend: str | None = None):
@@ -68,12 +62,11 @@ def query_reach(index, src_slots, dst_slots, *, backend: str | None = None):
         backend = default_join_backend(index.alive.device)
     src = _as_slots(src_slots, index.alive.device)
     dst = _as_slots(dst_slots, index.alive.device)
-    sok = _endpoint_ok(index, src)
-    dok = _endpoint_ok(index, dst)
-    hits, hub = _join(_rows(index, index.out_label, src, sok),
-                      _rows(index, index.in_label, dst, dok), backend)
+    hits, hub, sok, dok = _join(index, src, dst, backend)
     hit = hits > 0
-    decided = hit | ~sok | ~dok | index.complete
+    # hit | ~sok | ~dok | complete; on bools ``ok <= hit`` is hit | ~ok in
+    # one launch (a Python scalar in ``where`` would cost a fill)
+    decided = torch.ones_like(hit) if index.complete else (sok & dok) <= hit
     return hit, decided, hub
 
 
@@ -83,8 +76,8 @@ def reach_sets(index, src_slots):
     Rows are exact where decided (complete index, or an absent or dead
     source, whose set is empty)."""
     src = _as_slots(src_slots, index.alive.device)
-    sok = _endpoint_ok(index, src)
-    a = unpack_bits(_rows(index, index.out_label, src, sok),
+    sok = _plain.endpoint_ok(index.alive, src)
+    a = unpack_bits(_plain.slot_rows(index.out_label, src, sok),
                     index.num_landmarks).to(torch.float32)
     sets = (a @ index.in_label_bits.T.to(torch.float32)) > 0
     sets &= index.alive[None, :]

@@ -1,9 +1,8 @@
-// Packed top-down ("push") BFS superstep for Q frontiers, shared by the
-// Q-frontier kernel (bfs_multi_step/kernel.cu) and its single-frontier
-// instance (bfs_step/kernel.cu).
+// Packed top-down ("push") BFS superstep for Q frontiers: B1, launched by
+// bfs_multi_step/kernel.cu (the single-frontier B3 has a kernel of its
+// own in bfs_step/kernel.cu, which takes nonzero_bytes from here).
 //
-// Replaces repro/kernels/bfs_multi_step/kernel.py::multi_bfs_step_packed_pallas
-// and repro/kernels/bfs_step/kernel.py::bfs_step_packed_pallas.
+// Replaces repro/kernels/bfs_multi_step/kernel.py::multi_bfs_step_packed_pallas.
 //
 // Contract (bool = one byte, words = int32 bit patterns read as uint32):
 //   frontier bool[Q, R]   adj int32[R, W]   alive bool[V]   visited bool[Q, V]

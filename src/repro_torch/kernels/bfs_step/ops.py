@@ -34,10 +34,8 @@ def _launch(frontier, adj_packed, alive, visited):
     new = torch.empty((v,), dtype=torch.bool, device=dev)
     parent = torch.empty((v,), dtype=torch.int32, device=dev)
     reach = torch.empty((w,), dtype=torch.int32, device=dev)
-    scratch = torch.empty((-(-v // 32),), dtype=torch.int32, device=dev)
     _build.launch("bfs_step", "bfs_step_packed_launch", dev, frontier,
-                  adj_packed, alive, visited, new, parent, reach, scratch,
-                  v, w)
+                  adj_packed, alive, visited, new, parent, reach, v, w)
     launches += 1
     return new, parent, reach
 

@@ -9,7 +9,9 @@ integer or a bool), on the CPU:
   * ``query_reach`` / ``reach_sets`` / ``reach_counts`` on one index fed to
     both packages through ``convert.index_from_numpy``, JAX on "jnp" and
     "pallas" (interpret mode), the port on every join backend (the
-    "cuda" backends run their kernels' plain versions on a CPU index);
+    "cuda" backends run their kernels' plain versions on a CPU index),
+    and ``query_reach`` through B4 by slot on absent and dead endpoints,
+    sign-bit hubs, Q = 0 and Q = 1;
   * ``affected_landmarks`` and ``refresh`` (mode, rebuilt, every array),
     and incremental refresh == full rebuild over the same landmarks;
   * ``reach_session`` and ``reach_counts_session`` across a mutation and a
@@ -35,6 +37,11 @@ import repro_torch.index as TI
 from repro_torch.convert import index_from_numpy, state_from_numpy
 from repro_torch.index.labels import live_degrees
 from repro_torch.index.query import JOIN_BACKENDS
+from repro_torch.kernels.label_join.ops import label_join_slots
+from repro_torch.kernels.label_join.ref import (endpoint_ok,
+                                                label_join_packed_ref,
+                                                label_join_slots_ref,
+                                                slot_rows)
 from repro_torch.obs import trace
 from repro_torch.obs.metrics import global_registry
 
@@ -199,6 +206,53 @@ def test_query_reach_sets_counts_match_jax(graph, jax_backend, num):
     for a, b in zip(JI.reach_counts(ji, jnp.asarray(s)),
                     TI.reach_counts(ti, s)):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
+# (src, dst) slot pairs of the query cases that B4 by slot handles in the
+# kernel: absent slots, dead endpoints (40 is removed), pairs whose hub is
+# landmark column 31 or 63 of the complete index (the int32 sign bit of a
+# label word), Q = 0 and Q = 1
+SLOT_CASES = {
+    "absent": ([-1, -1, 5, 0], [5, -1, -1, 2]),
+    "dead src": ([40, 40, 40], [5, 40, 63]),
+    "dead dst": ([5, 63, 2], [40, 40, 40]),
+    "sign-bit hub": ([15, 46, 43, 15], [15, 15, 43, 43]),
+    "Q=0": ([], []),
+    "Q=1": ([2], [63]),
+}
+
+
+@pytest.mark.parametrize("case", list(SLOT_CASES))
+@pytest.mark.parametrize("num", [None, 3])
+def test_query_reach_by_slot_matches_jax(graph, case, num):
+    """query_reach through B4 by slot (its plain version, what a CPU index
+    runs for every backend) against the JAX package's gathered join; the
+    slot entry's outputs against the gathered rows it stands for."""
+    g, _ = graph
+    ji = JI.build_index(g, num)
+    ti = _to_port(ji)
+    src, dst = (np.asarray(x, np.int32) for x in SLOT_CASES[case])
+    want = JI.query_reach(ji, jnp.asarray(src), jnp.asarray(dst))
+    if case == "sign-bit hub" and num is None:
+        assert {31, 63} <= set(np.asarray(want[2]).tolist())
+    for be in JOIN_BACKENDS:
+        got = TI.query_reach(ti, src, dst, backend=be)
+        for name, a, b in zip(("reach", "decided", "hub"), want, got):
+            assert b.shape == (src.size,), f"{be} {name}"
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a),
+                                          err_msg=f"{be} {name}")
+    ts, td = torch.from_numpy(src), torch.from_numpy(dst)
+    args = (ti.out_label, ti.in_label, ti.alive, ts, td)
+    hits, hub, sok, dok = label_join_slots_ref(*args)
+    for x, y in zip(label_join_slots(*args), (hits, hub, sok, dok)):
+        assert torch.equal(x, y)
+    assert torch.equal(sok, torch.from_numpy(
+        (src >= 0) & np.asarray(ji.alive)[np.clip(src, 0, CAP - 1)]))
+    assert torch.equal(dok, endpoint_ok(ti.alive, td))
+    for x, y in zip((hits, hub), label_join_packed_ref(
+            slot_rows(ti.out_label, ts, sok),
+            slot_rows(ti.in_label, td, dok))):
+        assert torch.equal(x, y)
 
 
 def test_query_reach_rejects_unknown_join_backend(graph):

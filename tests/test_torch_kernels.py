@@ -65,9 +65,11 @@ from repro.kernels.label_join.kernel import (label_join_packed_pallas,
                                              label_join_pallas)
 from repro.kernels.label_join.ref import label_join_packed_ref as j_b4
 from repro.kernels.label_join.ref import label_join_ref as j_b8
-from repro_torch.kernels.label_join.ops import label_join, label_join_packed
+from repro_torch.kernels.label_join.ops import (label_join, label_join_packed,
+                                                label_join_slots)
 from repro_torch.kernels.label_join.ref import (label_join_packed_ref,
-                                                label_join_ref)
+                                                label_join_ref,
+                                                label_join_slots_ref)
 
 
 def _case(v, q, density, seed):
@@ -178,6 +180,56 @@ def test_b3_single_push_plain_matches_pallas(v, density):
         np.testing.assert_array_equal(_u32(reach), np.asarray(want[2]))
     for a, b in zip(bfs_step_packed_kernel(*targs), (new, parent, reach)):
         assert torch.equal(a, b)
+
+
+def _single_case(v, frontier, seed):
+    """B3 inputs on V not a multiple of 32: a sparse graph in which rows 3
+    and 33 set only bit 31 of their words (the int32 sign bit) and row 1
+    sets a bit in every word, and the named frontier."""
+    rng = np.random.default_rng(seed)
+    adj = rng.random((v, v)) < 0.05
+    adj[[3, 33]] = False
+    adj[3, 31::32] = adj[33, 31::32] = True
+    adj[1, ::32] = True
+    w = -(-v // 32)
+    padded = np.zeros((v, w * 32), bool)
+    padded[:, :v] = adj
+    words = np.packbits(padded, axis=1, bitorder="little").view(np.uint32)
+    fr = np.zeros(v, bool)
+    fr[{"rows 31 mod 32": np.arange(31, v, 32), "empty": [],
+        "every row": np.arange(v), "bit-31 rows": [3, 33]}[frontier]] = True
+    alive = rng.random(v) < 0.85
+    vis = fr | (rng.random(v) < 0.25)
+    alive[31], vis[31] = True, fr[31]
+    return words, fr, alive, vis
+
+
+SINGLE_FRONTIERS = ["rows 31 mod 32", "empty", "every row", "bit-31 rows"]
+
+
+@pytest.mark.parametrize("frontier", SINGLE_FRONTIERS)
+@pytest.mark.parametrize("v", [61, 95])
+def test_b3_single_push_frontiers_match_pallas(v, frontier):
+    """B3's plain version (what its wrapper runs on the CPU) against the
+    Pallas kernel in interpret mode on the frontiers the one-launch kernel
+    lists in its own way; reach bits at columns >= V stay zero."""
+    words, fr, alive, vis = _single_case(v, frontier, seed=v)
+    w = words.shape[1]
+    vc = w * 32
+    args = (jnp.asarray(fr, jnp.float32), jnp.asarray(words),
+            _pad(alive, vc), _pad(vis, vc))
+    pallas = bfs_step_packed_pallas(*args, tr=_pick_tile(v),
+                                    tw=_pick_word_tile(w), interpret=True)
+    targs = (_t(fr), _t(words), _t(alive), _t(vis))
+    new, parent, reach = bfs_step_packed_kernel(*targs)
+    np.testing.assert_array_equal(new.numpy(), np.asarray(pallas[0])[:v] > 0)
+    np.testing.assert_array_equal(parent.numpy(), np.asarray(pallas[1])[:v])
+    np.testing.assert_array_equal(_u32(reach), np.asarray(pallas[2]))
+    assert _u32(reach)[-1] >> (v % 32) == 0          # columns >= V
+    assert new.shape == parent.shape == (v,)
+    if frontier == "bit-31 rows":     # the smaller of rows 3 and 33 wins
+        assert new[31] and new.numpy()[np.arange(v) % 32 != 31].sum() == 0
+        assert set(parent.numpy()[new.numpy()].tolist()) == {3}
 
 
 NO_PARENT_CASES = [(75, 70, 0.1), (200, 130, 0.05), (40, 65, 0.3)]
@@ -292,6 +344,16 @@ def test_cuda_kernels_match_plain_versions(cuda_device, v, q, density):
     fw = pack_bits(args[0] & args[2][None])
     pargs = [fw, _t(in_words).to(d), args[2], args[3]]
     for a, b in zip(bfs_pull_step_rows(*pargs), bfs_pull_step_ref(*pargs)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frontier", SINGLE_FRONTIERS)
+@pytest.mark.parametrize("v", [61, 95, 4100])
+def test_cuda_b3_single_push_matches_plain(cuda_device, v, frontier):
+    words, fr, alive, vis = _single_case(v, frontier, seed=v + 1)
+    args = [_t(x).to(cuda_device) for x in (fr, words, alive, vis)]
+    for a, b in zip(bfs_step_packed_kernel(*args), bfs_step_packed_ref(*args)):
         assert torch.equal(a, b)
 
 
@@ -550,3 +612,23 @@ def test_cuda_dense_and_edge_kernels_match_plain_versions(cuda_device, v, q,
     for a, b in zip(edge_update_packed(packed, *t),
                     edge_update_packed_ref(packed, *t)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,l", [(0, 64), (1, 31), (64, 1024), (1000, 1030)])
+def test_cuda_label_join_slots_matches_plain(cuda_device, q, l):
+    """B4 by slot against its plain version: slots of -1 and past the end,
+    dead endpoints, rows with the sign bit."""
+    rng = np.random.default_rng(q + l)
+    v = 300
+    labels = []
+    for _ in range(2):
+        bits = rng.random((v, l)) < 0.05
+        bits[::7, min(31, l - 1)] = True
+        labels.append(pack_bits(torch.from_numpy(bits)).to(cuda_device))
+    alive = torch.from_numpy(rng.random(v) < 0.8).to(cuda_device)
+    src, dst = (torch.from_numpy(rng.integers(-1, v + 3, q).astype(
+        np.int32)).to(cuda_device) for _ in range(2))
+    args = (*labels, alive, src, dst)
+    for x, y in zip(label_join_slots(*args), label_join_slots_ref(*args)):
+        assert torch.equal(x, y)

@@ -10,9 +10,10 @@ The parent's ``bfs_multi_step``, ``bfs_pull_step`` and ``bfs_step``
 libraries (those the chosen kernels need) are built from
 ``<parent>/src/repro_torch/kernels/`` with the port's nvcc flags and
 called through their C entry points, with the signatures they had at
-commit bcb40cb (B1-B3 before the ``parents`` flag; B6/B7 with the
-``qm``/``act`` scratch of the row-split scan); this checkout's kernels
-run through its own wrappers. The inputs are captured from this
+commit 63a514c (B1, B2 and B6 with the ``parents`` flag, B6/B7 with the
+scratch of ``bfs_multi_step.ops.dense_scratch``, B3 with the ``fw``
+scratch of the split push); this checkout's kernels run through its own
+wrappers. The inputs are captured from this
 checkout's path on the ``chip_smoke.py`` cell (a Graph500 SCALE-16 state
 of capacity 69,632): one Q = 64 traversal and one single-query traversal
 on "hybrid_cuda" (B1, B2, B3), the two closures of one ``build_index``
@@ -108,6 +109,9 @@ def parent_fn(key, lib):
     """The parent's kernel as a function of the wrapper's arguments."""
     import torch
 
+    # unchanged since 63a514c
+    from repro_torch.kernels.bfs_multi_step.ops import dense_scratch
+
     e = dict(device="cuda")
     fn = KERNELS[key][2]
 
@@ -118,7 +122,8 @@ def parent_fn(key, lib):
         par = torch.empty((q, v), dtype=torch.int32, **e)
         reach = torch.empty((q, w), dtype=torch.int32, **e)
         fw = torch.empty((q, -(-r // 32)), dtype=torch.int32, **e)
-        _call(lib, fn, fr, adj, alive, vis, new, par, reach, fw, q, r, w, v)
+        _call(lib, fn, fr, adj, alive, vis, new, par, reach, fw, q, r, w, v,
+              1)
         return new, par, reach
 
     def b2(fw, adj_in, alive, vis):
@@ -126,8 +131,8 @@ def parent_fn(key, lib):
         r = adj_in.shape[0]
         new = torch.empty((q, r), dtype=torch.bool, **e)
         par = torch.empty((q, r), dtype=torch.int32, **e)
-        scratch = torch.empty((q,), dtype=torch.int32, **e)
-        _call(lib, fn, fw, adj_in, alive, vis, new, par, scratch, q, r, w)
+        scratch = torch.empty((w + q + w * q,), dtype=torch.int32, **e)
+        _call(lib, fn, fw, adj_in, alive, vis, new, par, scratch, q, r, w, 1)
         return new, par
 
     def b3(f, adj, alive, vis):
@@ -142,21 +147,18 @@ def parent_fn(key, lib):
     def b6(fr, adj, alive, vis):
         q, r = fr.shape
         v = adj.shape[1]
-        g = -(-q // 64)
         new = torch.empty((q, v), dtype=torch.bool, **e)
         par = torch.empty((q, v), dtype=torch.int32, **e)
-        qm = torch.empty((g, r), dtype=torch.int64, **e)
-        act = torch.empty((g, -(-r // 32)), dtype=torch.int32, **e)
-        _call(lib, fn, fr, adj, alive, vis, new, par, qm, act, q, r, v)
+        qm, ints = dense_scratch(q, r, "cuda")
+        _call(lib, fn, fr, adj, alive, vis, new, par, qm, ints, q, r, v, 1)
         return new, par
 
     def b7(f, adj, alive, vis):
         v = adj.shape[0]
         new = torch.empty((v,), dtype=torch.bool, **e)
         par = torch.empty((v,), dtype=torch.int32, **e)
-        qm = torch.empty((v,), dtype=torch.int64, **e)
-        act = torch.empty((-(-v // 32),), dtype=torch.int32, **e)
-        _call(lib, fn, f, adj, alive, vis, new, par, qm, act, v)
+        qm, ints = dense_scratch(1, v, "cuda")
+        _call(lib, fn, f, adj, alive, vis, new, par, qm, ints, v)
         return new, par
 
     return {"B1": b1, "B2": b2, "B3": b3, "B6": b6, "B7": b7}[key]
