@@ -59,9 +59,15 @@ Phases (each prints lines; the last line is the JSON result):
      ``multi_bfs``/``bfs`` field equals "hybrid_cuda" on the same pairs,
      every answer equals scipy's BFS; B6 and B7 must have launched there
   5. the device's busy and idle share over one batch, one session, one
-     single session and one session on the dense engine, and after phase
-     7 over one index build and one fresh index-served session
-     (torch.profiler; Chrome traces in build/chip_smoke_traces/)
+     single session and one session on the dense engine, after phase
+     7 over one index build and one fresh index-served session, and after
+     phase 8 over one admission round (``pump``), one ring push and one
+     ``state_at`` at replay depth 8 (torch.profiler; Chrome traces in
+     build/chip_smoke_traces/). Every trace of this script (here, phase
+     6's device times, the launch floor and ``query_reach_kernels``) opens
+     with 5 ms of settling calls and counts only the device events after
+     a ``record_function`` marker: a trace can lose the kernel records of
+     its first milliseconds
   6. per-kernel times at full size (CUDA events, L2 flushed between
      launches, and the kernels' own device time from a profiler trace) on
      inputs captured from one more Q = 64 traversal (B1-B3), one on the
@@ -105,6 +111,42 @@ Phases (each prints lines; the last line is the JSON result):
      run there, and equals its plain version on the last probe), never
      around the verification rebuilds. No path serves
      through B8, as in the JAX package: its launches there are 0
+  8. the multi-tenant serving path at full width, after phase 7 on the
+     phase-3 end state: an ``IngestPool`` (retain 64 epochs, 1,024
+     coalesced lanes) takes 48 admission rounds from 7 clients of 64-lane
+     equal-mix batches (RemoveVertex lanes as HasVertex) and an 8th
+     client's exclusive 16-lane batches holding RemoveVertex, one every
+     4th round (r = 0 mod 4, so that none is queued in the starved
+     rounds, r = 3 mod 4: an exclusive batch at the queue's head is
+     admitted alone, and the mutator's commit would wait a round); between
+     rounds one ``get_paths_session`` (Q = 64) with ``on_conflict=
+     "epoch"``, starved in 4 rounds by a mutator that commits a round on
+     each fetch (it then resolves at the pinned epoch); every 8 rounds
+     ``state_at`` of the newest epoch less 1, of the last check's epoch
+     (depth >= 8) and of the window's oldest equals the state published
+     then in all six arrays, a session on the rebuilt state and the
+     sessions equal scipy, ``epoch_diff`` equals a device compare of the
+     two states, and epochs outside the window raise
+     ``EpochEvictedError``; then ``build_index`` over the 1,024 hubs and a
+     ``reach_session(ring=...)`` whose state fetch commits a round, which
+     must serve pinned at the index's epoch through B4 and answer as
+     scipy; then the pool's linearization replayed batch by batch through
+     ``apply_ops_fast`` from epoch 0 (padded lanes) equals every ticket
+     and the head in all six arrays, transpose invariant included; last,
+     ``GraphCoServer(ingest=True, index=True)`` on a Graph500 SCALE-12
+     graph loaded through its own ``submit``: 4 clients through
+     ``submit_client``/``pump``, ``get_paths``, ``get_path`` (B3),
+     ``get_reach`` stale and fresh, ``get_reach_counts``, ``get_reach_at``
+     retained and evicted, ``epoch_diff``, ``index_tick``, degraded mode
+     (reads pinned while the pool publishes, writes R_RECOVERING) and
+     ``handle_crash`` without a WAL, ``get_metrics``; every answer equals
+     scipy on the state it was answered on. Printed: round wall split
+     into admit / fused apply / publish (ring push), lanes/s, the ring
+     push's host bytes beside a full-state copy, ``state_at`` ms by
+     depth, epoch-mode and time-travel session ms, coalescing, retries
+     and waits, the records' host memory, peak device memory and the
+     phase's launches (``serving_launches`` in the kernels line); B1, B2,
+     B4 and B3 must have launched
 
 It imports nothing of JAX and nothing of the JAX package. It exits non-zero
 without a result when no CUDA device is present or the port is missing.
@@ -134,6 +176,16 @@ ROUNDS = 8
 INDEX_LANDMARKS = 1024
 INDEX_ROUNDS = 4
 DENSE_ROUNDS = 4
+SERVE_ROUNDS = 48            # phase 8: admission rounds on the cell's state
+SERVE_CLIENTS, SERVE_LANES = 7, 64
+SERVE_EXCL_LANES = 16        # the 8th client's exclusive (RemoveVertex) batches
+SERVE_RETAIN, SERVE_COALESCE = 64, 1024
+SERVE_CHECK_EVERY = 8
+SERVE_STARVE = (3, 15, 27, 39)   # rounds whose session a mutator starves
+SERVE_MAX_ROUNDS = 3
+SERVER_SCALE, SERVER_CAPACITY = 12, 4160
+SERVER_CLIENTS, SERVER_ROUNDS, SERVER_RETAIN = 4, 10, 8
+SERVER_LANDMARKS, SERVER_LOAD_LANES = 256, 8192
 CLOSURE_SCALE, CLOSURE_CAPACITY, CLOSURE_Q = 12, 4160, 256
 COMPLETE_SCALE, COMPLETE_CAPACITY, COMPLETE_PAIRS = 10, 1088, 1024
 WIDE_QS = (1024, 1025)       # the index closures' Q, and a ragged group
@@ -220,16 +272,22 @@ def graph500_state_arrays(scale: int, cap: int, rng):
             pack_edges(v, u, cap)), len(e)
 
 
-def equal_mix_batch(rng, n_keys: int, device):
-    from repro_torch.convert import op_batch_from_numpy
+def equal_mix(rng, n_keys: int, lanes: int):
+    """(opcodes, key1, key2) of ``lanes`` lanes of the paper's "equal" mix,
+    keys uniform."""
     from repro_torch.core import (OP_ADD_E, OP_ADD_V, OP_CON_E, OP_CON_V,
                                   OP_REM_E, OP_REM_V)
 
     ops = np.array([OP_ADD_V, OP_REM_V, OP_CON_V, OP_ADD_E, OP_REM_E,
                     OP_CON_E], np.int32)
-    opc = rng.choice(ops, size=LANES, p=np.array(MIX) / 100)
-    k1 = rng.integers(0, n_keys, LANES)
-    k2 = rng.integers(0, n_keys, LANES)
+    opc = rng.choice(ops, size=lanes, p=np.array(MIX) / 100)
+    return opc, rng.integers(0, n_keys, lanes), rng.integers(0, n_keys, lanes)
+
+
+def equal_mix_batch(rng, n_keys: int, device):
+    from repro_torch.convert import op_batch_from_numpy
+
+    opc, k1, k2 = equal_mix(rng, n_keys, LANES)
     return op_batch_from_numpy(opc, k1, k2, np.full(LANES, -1), device)
 
 
@@ -281,19 +339,12 @@ class Timer:
         out); (None, {}) when the trace holds no device events. Unlike
         ``ms`` it leaves out the time the card waits for the host to
         enqueue the next launch."""
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        self.torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        def run():
             for _ in range(reps):
                 self.flush_buf.zero_()
                 fn()
-            self.torch.cuda.synchronize()
-        TRACE_DIR.mkdir(parents=True, exist_ok=True)
-        path = TRACE_DIR / "kernel_time.json"
-        prof.export_chrome_trace(str(path))
+
+        _, path = profiled(self.torch, run, "kernel_time")
         _, per_name = _busy_ms(path)
         own = {k: v / reps for k, v in per_name.items()
                if not k.startswith(("at::", "Memcpy"))}
@@ -1308,19 +1359,493 @@ def phase_index(torch, st, deg_src, rng):
     return index, cur["st"], pairs, launches
 
 
+# ----------------------------------------------------------------------------
+# Phase 8: the multi-tenant serving path at full width
+# ----------------------------------------------------------------------------
+def client_ops(rng, n_keys: int, lanes: int, removes: bool) -> list:
+    """One client batch of the "equal" mix as (opcode, k1, k2) tuples, keys
+    uniform. ``removes=False`` turns RemoveVertex lanes into HasVertex
+    (the batch stays non-exclusive); ``removes=True`` holds at least one
+    RemoveVertex lane (the batch is exclusive: admitted alone)."""
+    from repro_torch.core import OP_CON_V, OP_REM_V
+
+    opc, k1, k2 = equal_mix(rng, n_keys, lanes)
+    if removes:
+        opc[0] = OP_REM_V
+    else:
+        opc[opc == OP_REM_V] = OP_CON_V
+    return [(int(o), int(a), int(b)) for o, a, b in zip(opc, k1, k2)]
+
+
+def changed_rows(a, b):
+    """Slots whose bytes differ between two states (any field but the in
+    mirror), compared on the device."""
+    ch = (a.adj_packed != b.adj_packed).any(1)
+    for f in ("vkey", "valive", "vver", "ecnt"):
+        ch |= getattr(a, f) != getattr(b, f)
+    return ch.nonzero().flatten().cpu().numpy().astype(np.int32)
+
+
+def record_bytes(ring) -> int:
+    return sum(getattr(r, f).nbytes for r in ring._records
+               for f in ("versions", "rows", "vkey_xor", "valive_xor",
+                         "vver_xor", "ecnt_xor", "adj_xor"))
+
+
+def ms_of(torch, fn):
+    sync(torch)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(torch)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_serving(torch, st, deg_src, rng):
+    """Phase 8: ``IngestPool`` and ``EpochRing`` on the phase-3 end state,
+    a ring-validated index, the linearization replayed at full width, and
+    ``GraphCoServer`` end to end on a SCALE-12 graph. Returns (launches,
+    the pool) for the phase-5 profiles."""
+    from repro_torch.core import (OP_ADD_E, OP_ADD_V, EpochEvictedError,
+                                  apply_ops_fast, get_paths_session,
+                                  make_op_batch, transpose_invariant)
+    from repro_torch.index import build_index, reach_session
+    from repro_torch.obs import trace
+    from repro_torch.runtime.ingest import IngestPool, _next_pow2
+
+    n = 1 << SCALE
+    t_phase = time.perf_counter()
+    sync(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    reset_counts()
+    free = int((st.vkey == -1).sum())
+    pool = IngestPool(st, retain_epochs=SERVE_RETAIN,
+                      max_coalesce_lanes=SERVE_COALESCE)
+    ring = pool.ring
+    push_ms, push_bytes = [], []
+    plain_push = ring.push
+
+    def timed_push(epoch, state):
+        before = ring._host_bytes
+        _, ms = ms_of(torch, lambda: plain_push(epoch, state))
+        push_ms.append(ms)
+        push_bytes.append(ring._host_bytes - before)
+
+    ring.push = timed_push
+    # published states held by reference: epoch 0 (the phase-3 state), the
+    # one before the newest, and the mark of the last check
+    held = {0: st}
+    mark = {"e": 0}
+
+    def note():
+        e, s = pool.snapshot_epoch()
+        held[e] = s
+        for k in [k for k in held if k not in (0, mark["e"], e - 1, e)]:
+            del held[k]
+
+    queued = {}
+
+    def refill(r):
+        for c in range(SERVE_CLIENTS):
+            t = queued.get(c)
+            if t is None or t.status != "queued":
+                queued[c] = pool.submit(f"c{c}", client_ops(
+                    rng, n, SERVE_LANES, removes=False))
+        t = queued.get("x")
+        # never queued when a starved round (r = 3 mod 4) starts: the
+        # mutator's commits must land on the session's fetches, and an
+        # exclusive batch ahead of them would be admitted alone first
+        if r % 4 == 0 and (t is None or t.status != "queued"):
+            queued["x"] = pool.submit("x", client_ops(
+                rng, n, SERVE_EXCL_LANES, removes=True))
+
+    fresh = iter(range(1 << 20, 1 << 21))
+    session_ms, starved_ms, tt_ms, state_at_ms = [], [], [], {}
+    rounds_info = []
+    with trace.capture() as rec:
+        for r in range(SERVE_ROUNDS):
+            refill(r)
+            pool.pump()
+            note()
+            pairs = list(zip(rng.choice(deg_src, QUERIES).tolist(),
+                             rng.integers(0, n, QUERIES).tolist()))
+            starve = r in SERVE_STARVE
+            srcs = sorted({k for k, _ in pairs})
+
+            def fetch():
+                if starve:
+                    # a mutator commits a round on every fetch, bumping
+                    # each query source's ecnt: the collects never match
+                    k = next(fresh)
+                    pool.submit("mutator", [(OP_ADD_V, k)] + [
+                        (OP_ADD_E, s, k) for s in srcs])
+                    pool.pump()
+                    note()
+                return pool.snapshot()
+
+            sinfo = {}
+            (out, nr), ms = ms_of(torch, lambda: get_paths_session(
+                fetch, pairs, max_rounds=SERVE_MAX_ROUNDS,
+                on_conflict="epoch", fetch_epoch=pool.snapshot_epoch,
+                stats=sinfo))
+            (starved_ms if sinfo["starved"] else session_ms).append(ms)
+            if starve != bool(sinfo["starved"]):
+                raise AssertionError(f"serve round {r}: starved "
+                                     f"{sinfo['starved']}, want {starve}")
+            if starve or r % SERVE_CHECK_EVERY == 0:
+                at = (pool.state_at(sinfo["epoch"]) if starve
+                      else pool.snapshot())
+                check_answers(at, pairs, out, f"serve round {r}")
+            if r % SERVE_CHECK_EVERY == SERVE_CHECK_EVERY - 1:
+                lo, hi = pool.epoch_window()
+                if lo != 0:
+                    raise AssertionError(f"window {lo, hi}: epoch 0 left")
+                for e, want in ((hi - 1, held[hi - 1]), (mark["e"],
+                                held[mark["e"]]), (lo, st)):
+                    got, ms = ms_of(torch, lambda: pool.state_at(e))
+                    state_at_ms.setdefault(hi - e, []).append(ms)
+                    same_result(got, want, f"state_at({e}) at {hi}")
+                    del got
+                tt_state = pool.state_at(mark["e"])
+                (tout, _), ms = ms_of(torch, lambda: get_paths_session(
+                    lambda: tt_state, pairs))
+                tt_ms.append(ms)
+                check_answers(tt_state, pairs, tout,
+                              f"time travel to {mark['e']}")
+                del tt_state
+                d = pool.epoch_diff(mark["e"], hi)
+                rows = changed_rows(held[mark["e"]], held[hi])
+                if not np.array_equal(d.rows, rows):
+                    raise AssertionError(f"epoch_diff({mark['e']}, {hi}): "
+                                         f"{len(d.rows)} rows, a device "
+                                         f"compare finds {len(rows)}")
+                vk = held[hi].vkey.cpu().numpy()
+                if not np.array_equal(d.keys_after, vk[rows]):
+                    raise AssertionError("epoch_diff keys_after differ")
+                for e in (hi + 1, lo - 1):
+                    try:
+                        pool.state_at(e)
+                    except EpochEvictedError as err:
+                        if err.window != (lo, hi) or err.epoch != e:
+                            raise AssertionError(f"evicted {err}")
+                    else:
+                        raise AssertionError(f"state_at({e}) outside "
+                                             f"{lo, hi} answered")
+                if not np.array_equal(d.keys_before,
+                                      held[mark["e"]].vkey.cpu().numpy()[rows]):
+                    raise AssertionError("epoch_diff keys_before differ")
+                mark["e"] = hi
+                note()
+            rounds_info.append(nr)
+        spans = {}
+        for ev in rec.events():
+            if ev["name"] in ("ingest.round", "ingest.admit",
+                              "ingest.fused_apply"):
+                spans.setdefault(ev["name"], []).append(ev["dur"] / 1e3)
+    ring.push = plain_push
+    ps = pool.stats
+    lanes_applied = sum(len(t.ops) for t in pool.tickets.values()
+                        if t.status == "applied")
+    lo, hi = pool.epoch_window()
+    med = statistics.median
+    log(f"serving pool: V={st.capacity}, {free} free slots, "
+        f"{SERVE_ROUNDS} rounds of {SERVE_CLIENTS} clients x {SERVE_LANES} "
+        f"lanes + 1 exclusive client x {SERVE_EXCL_LANES} (RemoveVertex) "
+        f"every 4th round; {ps.fused_calls} fused applies, {ps.applied} "
+        f"batches applied, coalesce_max {ps.coalesce_max}, "
+        f"coalesce_lanes_max {ps.coalesce_lanes_max}, retries "
+        f"{ps.retries}, wait {ps.wait_s * 1e3:.3f} ms total / "
+        f"{ps.wait_max_s * 1e3:.3f} ms max, epochs {lo}..{hi}, "
+        f"{len(ring)} records retained")
+    log(f"serving round wall ms (median over {len(spans['ingest.round'])}; "
+        f"trace spans, fused apply fenced): round "
+        f"{med(spans['ingest.round']):.3f}, admit "
+        f"{med(spans['ingest.admit']):.3f}, fused apply "
+        f"{med(spans['ingest.fused_apply']):.3f}, publish (ring push) "
+        f"{med(push_ms):.3f}; {lanes_applied} lanes applied, "
+        f"{lanes_applied / (sum(spans['ingest.round']) / 1e3):.0f} lanes/s "
+        f"of round wall")
+    full = st.adj_packed.numel() * 4 + 4 * 4 * st.capacity
+    log(f"ring push: {med(push_bytes) / 1e6:.3f} MB to the host per "
+        f"publish (median, max {max(push_bytes) / 1e6:.3f} MB) beside "
+        f"{full / 1e6:.1f} MB that a full-state copy of the five row "
+        f"fields moves (a byte count from the shapes); retained records "
+        f"{record_bytes(ring) / 1e6:.3f} MB host memory")
+    log("state_at ms by replay depth: " + "; ".join(
+        f"depth {d}: {med(v):.3f}" for d, v in sorted(state_at_ms.items())))
+    log(f"epoch-mode get_paths_session (Q={QUERIES}) median "
+        f"{med(session_ms):.3f} ms matched over {len(session_ms)}, "
+        f"{med(starved_ms):.3f} ms starved over {len(starved_ms)} "
+        f"(resolved at a pinned epoch after {SERVE_MAX_ROUNDS} collects); "
+        f"time-travel session {med(tt_ms):.3f} ms over {len(tt_ms)}; "
+        f"collects per session {rounds_info}")
+
+    # a ring-validated index: built at the head, then a session whose state
+    # fetch commits one round first serves pinned at the index's epoch
+    e0, s0 = pool.snapshot_epoch()
+    hubs = hub_slots(s0, INDEX_LANDMARKS)
+    index, build_ms = ms_of(torch, lambda: build_index(
+        s0, landmark_slots=hubs))
+    ipairs = list(zip(rng.choice(deg_src, QUERIES).tolist(),
+                      rng.integers(0, n, QUERIES).tolist()))
+
+    def racing():
+        refill(1)
+        pool.pump()
+        note()
+        return pool.snapshot()
+
+    b4_before = counts()["B4"]
+    res, pin_ms = ms_of(torch, lambda: reach_session(
+        racing, index, ipairs, on_conflict="epoch",
+        fetch_epoch=pool.snapshot_epoch, ring=ring))
+    if res.pinned_epoch != e0 or pool.epoch != e0 + 1:
+        raise AssertionError(f"ring-validated session pinned at "
+                             f"{res.pinned_epoch}, index epoch {e0}, head "
+                             f"{pool.epoch}")
+    if counts()["B4"] == b4_before or res.from_index == 0:
+        raise AssertionError("the pinned session served nothing through B4")
+    reach = check_reach(s0, ipairs, res.found, "ring-pinned index")
+    log(f"ring-validated index: build_index over {INDEX_LANDMARKS} hubs at "
+        f"epoch {e0} {build_ms:.3f} ms; reach_session with a round "
+        f"committed in its state fetch {pin_ms:.3f} ms, pinned at epoch "
+        f"{res.pinned_epoch} (head {pool.epoch}), from_index "
+        f"{res.from_index}, fellback {res.fellback}, reachable "
+        f"{reach}/{QUERIES}; answers equal scipy on epoch {e0}")
+    del index, s0
+    sync(torch)
+    peak = torch.cuda.max_memory_allocated()
+
+    # linearizability at full width: the claimed order replayed batch by
+    # batch from epoch 0 must reach the pool's head bit for bit
+    cur, n_b, t0 = st, 0, time.perf_counter()
+    for bid in pool.linearization:
+        t = pool.tickets[bid]
+        cur, res_t = apply_ops_fast(cur, make_op_batch(
+            t.ops, lanes=_next_pow2(len(t.ops)), device=DEVICE))
+        if not np.array_equal(res_t[:len(t.ops)].cpu().numpy(), t.results):
+            raise AssertionError(f"replay of batch {bid} ({t.client_id}) "
+                                 f"differs from its ticket")
+        n_b += 1
+    sync(torch)
+    replay_s = time.perf_counter() - t0
+    same_result(cur, pool.snapshot(), "serial replay vs the pool's head")
+    if not bool(transpose_invariant(cur)):
+        raise AssertionError("transpose invariant broken at the pool's head")
+    log(f"linearizability: {n_b} batches of the linearization replayed "
+        f"through apply_ops_fast from epoch 0 in {replay_s:.1f} s: every "
+        f"ticket's results and all six arrays of the head equal; the "
+        f"transpose invariant holds")
+    del cur
+
+    server_launches = serve_end_to_end(torch, rng)
+    launches = counts()
+    require_launched(launches, ("B1", "B2", "B4"), "on the serving path")
+    require_launched(server_launches, ("B3",), "in GraphCoServer.get_path")
+    log(f"serving checks passed; peak device memory "
+        f"{peak / 1e9:.3f} GB ({(peak - base_mem) / 1e9:.3f} GB above the "
+        f"{base_mem / 1e9:.3f} GB held at the start); phase 8 launches "
+        f"{launches}; phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, pool
+
+
+def serve_end_to_end(torch, rng):
+    """``GraphCoServer(ingest=True, index=True)`` on a Graph500 SCALE-12
+    graph loaded through its own ``submit``; every endpoint's answer
+    equals scipy on the state it was answered on. Returns the launches
+    counted in it (the counts keep running for the phase)."""
+    from repro_torch.core import (OP_ADD_E, OP_ADD_V, R_EDGE_ADDED,
+                                  R_RECOVERING, R_TRUE)
+    from repro_torch.runtime.fault import FailurePolicy
+    from repro_torch.runtime.serve_loop import GraphCoServer
+
+    c0 = counts()
+    n = 1 << SERVER_SCALE
+    u, v = graph500_edges(SERVER_SCALE, EDGEFACTOR, rng)
+    e = np.unique(u * n + v)
+    edges = [(OP_ADD_E, int(x // n), int(x % n)) for x in e]
+    s = GraphCoServer(capacity=SERVER_CAPACITY, ingest=True, index=True,
+                      index_landmarks=SERVER_LANDMARKS,
+                      retain_epochs=SERVER_RETAIN,
+                      failure_policy=FailurePolicy(max_restarts=3),
+                      device=DEVICE)
+    t0 = time.perf_counter()
+    res = [s.submit([(OP_ADD_V, k) for k in range(n)])]
+    for i in range(0, len(edges), SERVER_LOAD_LANES):
+        res.append(s.submit(edges[i:i + SERVER_LOAD_LANES]))
+    load_s = time.perf_counter() - t0
+    res = np.concatenate(res)
+    if not ((res == R_TRUE).sum() == n
+            and (res == R_EDGE_ADDED).sum() == len(edges)):
+        raise AssertionError("the server's load did not add every key and "
+                             "edge")
+    if s.index_tick() is not True or s.index_tick() is not False:
+        raise AssertionError("index_tick did not build once")
+    deg = np.flatnonzero(s.state.ecnt.cpu().numpy()[:n] > 0)
+    for r in range(SERVER_ROUNDS):
+        for c in range(SERVER_CLIENTS):
+            s.submit_client(f"s{c}", client_ops(rng, n, SERVE_LANES,
+                                                removes=c == 3 and r % 3 == 0))
+        s.pump()
+    s.flush()
+    pairs = list(zip(rng.choice(deg, QUERIES).tolist(),
+                     rng.integers(0, n, QUERIES).tolist()))
+    st = s.state
+    out, _ = s.get_paths(pairs)
+    check_answers(st, pairs, out, "server get_paths")
+    alive = set(st.vkey[st.valive].tolist())
+    k, l = next(p for p in pairs if p[0] in alive)
+    pr = s.get_path(k, l)
+    check_answers(st, [(k, l)], [(bool(pr.found),
+                                  pr.keys[:int(pr.length)].tolist())],
+                  "server get_path")
+    stale = s.get_reach(pairs)
+    check_reach(st, pairs, stale.found, "server get_reach (stale index)")
+    if not s.index_tick():
+        raise AssertionError("index_tick did not refresh a stale index")
+    fresh = s.get_reach(pairs)
+    check_reach(st, pairs, fresh.found, "server get_reach (fresh index)")
+    if fresh.from_index == 0 or stale.from_index != 0:
+        raise AssertionError("the index served stale or not at all")
+    keys = [p[0] for p in pairs[:16]]
+    got = s.get_reach_counts(keys)
+    g, _, slot_of = live_graph(st)
+    srcs, dist = scipy_dist(g, slot_of, keys)
+    if got.tolist() != [int(np.isfinite(dist[x]).sum()) if x >= 0 else 0
+                        for x in srcs]:
+        raise AssertionError("server get_reach_counts differs from scipy")
+    lo, hi = s.epoch_window()
+    tt = s.get_reach_at(pairs, lo)
+    check_reach(s.pool.state_at(lo), pairs, tt.found, "server get_reach_at")
+    if tt.evicted or not s.get_reach_at(pairs, lo - 1).evicted:
+        raise AssertionError("get_reach_at evicted flags are wrong")
+    d = s.epoch_diff(lo, hi)
+    rows = changed_rows(s.pool.state_at(lo), s.pool.state_at(hi))
+    if d.evicted or d.rows != rows.tolist():
+        raise AssertionError("server epoch_diff differs from a device "
+                             "compare")
+    # degraded mode without a WAL: reads pinned, writes rejected, then
+    # handle_crash un-pins
+    s.submit_client("s0", client_ops(rng, n, 8, removes=False))
+    s.enter_degraded()
+    pinned_e = s._pinned[0]
+    s.pump()                               # the pool publishes on
+    if s.pool.epoch != pinned_e + 1 or s.state is not s._pinned[1]:
+        raise AssertionError("degraded reads did not pin")
+    dpairs = pairs[:8]
+    dout, _ = s.get_paths(dpairs)
+    check_answers(s.pool.state_at(pinned_e), dpairs, dout,
+                  "server degraded get_paths")
+    rej = s.submit([(OP_ADD_V, n + 1)])
+    tick = s.submit_client("s1", [(OP_ADD_V, n + 2)])
+    if (rej != R_RECOVERING).any() or tick.status != "rejected":
+        raise AssertionError("degraded writes were not rejected")
+    wait = s.handle_crash()
+    if s.degraded or s.state is not s.pool.snapshot():
+        raise AssertionError("handle_crash left the server degraded")
+    m = s.get_metrics()
+    want = {"server.tt_calls": 2, "server.tt_evicted": 1,
+            "server.epoch_diff_calls": 1, "server.rejected_writes": 2,
+            "server.index_refreshes": 2, "ring.window_hi": s.pool.epoch,
+            "ingest.applied": s.pool.stats.applied}
+    bad = {k: (m.get(k), v) for k, v in want.items() if m.get(k) != v}
+    if bad or m["server.degraded_reads"] < 1:
+        raise AssertionError(f"get_metrics: {bad}")
+    c1 = counts()
+    launches = {k: c1[k] - c0[k] for k in c1}
+    log(f"GraphCoServer: Graph500 SCALE {SERVER_SCALE} ({n} keys, "
+        f"{len(edges)} edges) loaded through submit in {load_s:.1f} s "
+        f"({SERVER_LOAD_LANES}-lane batches); {SERVER_CLIENTS} clients x "
+        f"{SERVER_ROUNDS} rounds; get_paths, get_path, get_reach (stale and "
+        f"fresh, from_index {fresh.from_index}), get_reach_counts, "
+        f"get_reach_at (epoch {lo}; {lo - 1} evicted), epoch_diff "
+        f"({len(d.rows)} rows), index_tick, degraded reads pinned at epoch "
+        f"{pinned_e} while the pool published {pinned_e + 1}, writes "
+        f"R_RECOVERING, handle_crash backoff {wait} s; every answer equals "
+        f"scipy; get_metrics {len(m)} keys; launches {launches}")
+    return launches
+
+
+def serving_work(pool, rng):
+    """One pump round (7 client batches queued first), one ``state_at`` at
+    depth 8 and one ring push (the newest state against the one before),
+    for the phase-5 profiles."""
+    from repro_torch.core import EpochRing
+
+    n = 1 << SCALE
+    prev = pool.state_at(pool.epoch - 1)
+    head = pool.snapshot()
+    side = EpochRing(4)
+
+    def pump():
+        for c in range(SERVE_CLIENTS):
+            pool.submit(f"p{c}", client_ops(rng, n, SERVE_LANES, False))
+        pool.pump()
+
+    def push():
+        side.reset(0, prev)
+        side.push(1, head)
+
+    return {"pump": pump, "ring_push": push,
+            "state_at_depth_8": lambda: pool.state_at(pool.epoch - 8)}
+
+
+PROFILE_MARK = "measured"
+PROFILE_SETTLE_S = 0.005
+
+
+def profiled(torch, fn, name: str):
+    """Trace one call of ``fn`` under torch.profiler, after a warm-up call:
+    (wall ms of the traced call, the Chrome trace written to
+    build/chip_smoke_traces/``name``.json). A trace can lose the kernel
+    records of its first milliseconds, so it opens with ``fn`` called
+    until PROFILE_SETTLE_S have passed, and the traced call runs inside a
+    ``record_function`` span that ``device_events`` reads from."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    fn()
+    sync(torch)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < PROFILE_SETTLE_S:
+            fn()
+            sync(torch)
+        with record_function(PROFILE_MARK):
+            t0 = time.perf_counter()
+            fn()
+            sync(torch)
+            wall = (time.perf_counter() - t0) * 1e3
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    path = TRACE_DIR / f"{name}.json"
+    prof.export_chrome_trace(str(path))
+    return wall, path
+
+
+def device_events(trace_file: Path) -> list:
+    """The kernel / memcpy / memset events of a ``profiled`` trace that
+    start after its traced span opens on the device's timeline (its host
+    span can start hundreds of microseconds later), in time order; [] when
+    the trace holds no device side of the span."""
+    trace = json.loads(trace_file.read_text())["traceEvents"]
+    marks = [e["ts"] for e in trace if e.get("name") == PROFILE_MARK
+             and e.get("cat") == "gpu_user_annotation"]
+    if not marks:
+        return []
+    return sorted((e for e in trace if e.get("ph") == "X" and e.get("cat")
+                   in ("kernel", "gpu_memcpy", "gpu_memset")
+                   and e["ts"] >= min(marks)), key=lambda e: e["ts"])
+
+
 def _busy_ms(trace_file: Path):
-    """(device busy ms, {kernel name: ms}) from a Chrome trace: the union
-    of the kernel / memcpy / memset intervals on the card."""
-    events = json.loads(trace_file.read_text())["traceEvents"]
+    """(device busy ms, {kernel name: ms}) of a ``profiled`` trace's traced
+    call: the union of its kernel / memcpy / memset intervals."""
     spans, per_name = [], {}
-    for e in events:
-        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
-                                                  "gpu_memset"):
-            spans.append((e["ts"], e["ts"] + e["dur"]))
-            name = re.sub(r"^void |\(anonymous namespace\)::", "",
-                          e["name"])
-            name = re.split(r"[(<]", name)[0][:40].strip()
-            per_name[name] = per_name.get(name, 0.0) + e["dur"] / 1e3
+    for e in device_events(trace_file):
+        spans.append((e["ts"], e["ts"] + e["dur"]))
+        name = re.sub(r"^void |\(anonymous namespace\)::", "", e["name"])
+        name = re.split(r"[(<]", name)[0][:40].strip()
+        per_name[name] = per_name.get(name, 0.0) + e["dur"] / 1e3
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         if b > end:
@@ -1356,24 +1881,10 @@ def index_work(index, st, pairs):
 
 
 def phase_profile(torch, work):
-    """Device busy share of each call in ``work`` (name -> function), run
-    once under torch.profiler after one warm-up call; Chrome traces are
-    written to build/chip_smoke_traces/."""
-    from torch.profiler import ProfilerActivity, profile
-
-    out_dir = TRACE_DIR
-    out_dir.mkdir(parents=True, exist_ok=True)
+    """Device busy share of one call of each function in ``work`` (name ->
+    function), traced by ``profiled``."""
     for name, fn in work.items():
-        fn()
-        sync(torch)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            sync(torch)
-            wall = (time.perf_counter() - t0) * 1e3
-        trace_file = out_dir / f"chip_smoke_{name}.json"
-        prof.export_chrome_trace(str(trace_file))
+        wall, trace_file = profiled(torch, fn, f"chip_smoke_{name}")
         busy, per_name = _busy_ms(trace_file)
         if not per_name:
             log(f"profile {name}: wall {wall:.3f} ms; device busy not "
@@ -1693,8 +2204,6 @@ def launch_floor(torch, reps=200):
     events (the host's enqueue of one PyTorch launch; behind an L2 flush
     the enqueue hides and the fill reads 0) and by the fill kernel's own
     device time in a profiler trace."""
-    from torch.profiler import ProfilerActivity, profile
-
     def fills():
         for _ in range(reps):
             torch.zeros(1, device="cuda")
@@ -1708,13 +2217,7 @@ def launch_floor(torch, reps=200):
     end.record()
     end.synchronize()
     ms = start.elapsed_time(end) / reps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fills()
-        sync(torch)
-    TRACE_DIR.mkdir(parents=True, exist_ok=True)
-    path = TRACE_DIR / "launch_floor.json"
-    prof.export_chrome_trace(str(path))
+    _, path = profiled(torch, fills, "launch_floor")
     _, per_name = _busy_ms(path)
     dms = sum(per_name.values()) / reps if per_name else None
     log(f"launch floor (torch.zeros(1) fill): {ms:.4f} ms/launch back to "
@@ -1725,34 +2228,14 @@ def launch_floor(torch, reps=200):
 
 def query_reach_kernels(torch, index, src, dst):
     """The CUDA kernels (and copies and fills) one ``query_reach`` on these
-    slot tensors launches, from a torch.profiler trace after a warm-up
-    call: {"kernels": n, "copies": n, "fills": n}, every device event after
-    the trace's leading ``torch.zeros(1)`` fill (the names are logged);
-    n["kernels"] is None when the trace holds no B4 launch. The fill is
-    there because a trace may drop its first device event: if it is
-    missing, every event counts."""
-    from torch.profiler import ProfilerActivity, profile
-
+    slot tensors launches, from a ``profiled`` trace: {"kernels": n,
+    "copies": n, "fills": n} (the names are logged); n["kernels"] is None
+    when the trace holds no B4 launch."""
     from repro_torch.index import query_reach
 
-    query_reach(index, src, dst)
-    sync(torch)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.zeros(1, device="cuda")
-        sync(torch)
-        query_reach(index, src, dst)
-        sync(torch)
-    TRACE_DIR.mkdir(parents=True, exist_ok=True)
-    path = TRACE_DIR / "query_reach.json"
-    prof.export_chrome_trace(str(path))
-    events = sorted((e for e in json.loads(path.read_text())["traceEvents"]
-                     if e.get("ph") == "X" and e.get("cat") in (
-                         "kernel", "gpu_memcpy", "gpu_memset")),
-                    key=lambda e: e["ts"])
-    if events and ("Fill" in events[0]["name"]
-                   or events[0]["cat"] == "gpu_memset"):
-        events = events[1:]   # the sentinel
+    _, path = profiled(torch, lambda: query_reach(index, src, dst),
+                       "query_reach")
+    events = device_events(path)
     joined = any("label_join_slots" in e["name"] for e in events)
     n = {k: sum(e["cat"] == c for e in events) for k, c in
          (("kernels", "kernel"), ("copies", "gpu_memcpy"),
@@ -1946,6 +2429,10 @@ def main(argv=None) -> int:
     index, ist, ipairs, ilaunches = phase_index(torch, st, deg_src,
                                                 index_rng)
     phase_profile(torch, index_work(index, ist, ipairs))
+    serve_rng = np.random.default_rng([args.seed, 6])
+    slaunches, pool = phase_serving(torch, st, deg_src, serve_rng)
+    phase_profile(torch, serving_work(pool, serve_rng))
+    del pool
     # each kernel's launches on the path that runs it: B1-B3 the main
     # path, B6/B7 the dense engine, B4/B8 the index; no path runs B5/B9
     launches.update({k: dlaunches[k] for k in DENSE_KERNELS + EDGE_KERNELS})
@@ -1954,6 +2441,8 @@ def main(argv=None) -> int:
     kernels = phase_kernel_times(torch, st, pairs, dpairs, index, ist,
                                  ipairs, launches, single["B2"], timer,
                                  dense_rng)
+    for key, k in zip(KERNEL_META, kernels):
+        k["serving_launches"] = slaunches[key]
     log(f"card: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,7 @@
   bfs, multi_bfs, extract_path, default_backend           (bfs.py)
   collect, compare_collects, get_path, get_path_session,
   collect_batch, get_paths_session, interleaved_getpath   (snapshot.py)
+  EpochRing, EpochRecord, EpochDiff, EpochEvictedError    (epochs.py)
   GraphOracle                                             (oracle.py)
 """
 from repro_torch.core.graph import (  # noqa: F401
@@ -84,5 +85,11 @@ from repro_torch.core.snapshot import (  # noqa: F401
     get_path_session,
     get_paths_session,
     interleaved_getpath,
+)
+from repro_torch.core.epochs import (  # noqa: F401
+    EpochDiff,
+    EpochEvictedError,
+    EpochRecord,
+    EpochRing,
 )
 from repro_torch.core.oracle import GraphOracle  # noqa: F401

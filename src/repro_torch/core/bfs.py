@@ -300,12 +300,15 @@ def _run(state: GraphState, src, dst, backend: str, parents: bool,
         pull_fn = pull_fn and one_query(pull_fn)
 
     reg = _obs_registry()
-    tracing = _trace.enabled()
+    # as in JAX, only the multi-source engine is traced: the single-source
+    # ``bfs`` records no span and moves no bfs.* metric
+    tracing = multi and _trace.enabled()
+    span = _trace.span if tracing else _trace.null_span
     pulling = False
     last_dir = None
     step = 0
-    with _trace.span("bfs.session", queries=q, capacity=v, backend=backend,
-                     parents=parents) as session:
+    with span("bfs.session", queries=q, capacity=v, backend=backend,
+              parents=parents) as session:
         while step < v:
             act = frontiers.any(1) & ~(has_dst & visited[qi, dst_c])
             f = frontiers & act[:, None]
@@ -315,8 +318,8 @@ def _run(state: GraphState, src, dst, backend: str, parents: bool,
                 [act.any().to(nu_t.dtype), f.sum(), nu_t]).tolist()
             if not any_act:
                 break
-            with _trace.span("bfs.superstep", step=step, frontier_pop=nf,
-                             unvisited_pop=nu) as sp:
+            with span("bfs.superstep", step=step, frontier_pop=nf,
+                      unvisited_pop=nu) as sp:
                 if hybrid:
                     pulling = pick_direction(pulling, nf, nu, q * v, alpha,
                                              beta)
@@ -338,7 +341,8 @@ def _run(state: GraphState, src, dst, backend: str, parents: bool,
                 unvisited_live &= ~new
                 steps += act.to(torch.int32)
                 frontiers = new
-                _trace.fence(new)
+                if tracing:
+                    _trace.fence(new)
                 direction = "pull" if pulling else "push"
                 sp.set(direction=direction)
             if tracing:

@@ -4,7 +4,7 @@ of ``repro.index``.
 Public surface:
   ReachIndex, build_index, pick_landmarks, rebuild_rows      (labels.py)
   query_reach, reach_sets, reach_counts                      (query.py)
-  index_fresh, refresh, affected_landmarks,
+  index_fresh, index_fresh_at, refresh, affected_landmarks,
   reach_session, reach_counts_session, ReachSessionResult    (freshness.py)
 """
 from repro_torch.index.labels import (  # noqa: F401
@@ -22,6 +22,7 @@ from repro_torch.index.freshness import (  # noqa: F401
     ReachSessionResult,
     affected_landmarks,
     index_fresh,
+    index_fresh_at,
     reach_counts_session,
     reach_session,
     refresh,

@@ -18,8 +18,11 @@ affected rows are re-traversed, and the landmark list stays fixed, so an
 incremental refresh is bit-identical to a full rebuild over the same
 landmarks. The closures ``fwd``/``bwd`` stay on the device throughout.
 
-Not ported yet: validation against the epoch ring (``on_conflict="epoch"``
-with a ``ring``, ROADMAP.md queue A7) and sharded states (A10).
+A stale-at-head index can still serve from the epoch ring (DESIGN.md §13):
+``index_fresh_at`` finds the newest retained epoch whose version vector
+equals the index's stamp, and ``reach_session(ring=...,
+on_conflict="epoch")`` pins the batch there when that epoch is at or after
+the query's admitted epoch. Sharded states wait for ROADMAP.md queue A10.
 """
 from __future__ import annotations
 
@@ -111,15 +114,27 @@ class ReachSessionResult:
     stale: bool       # an epoch mismatch sent the whole batch to BFS
     rounds: int       # collect rounds of the BFS session (0 if none)
     _materialize: Callable = field(repr=False, default=lambda: [])
-    pinned_epoch: int | None = None  # epoch the answers linearize at when
-    # the BFS session resolved against ``fetch_epoch()`` (on_conflict="epoch")
+    pinned_epoch: int | None = None  # retained epoch the answers
+    # linearize at: the ring validated a stale-at-head index there, or the
+    # BFS session resolved against ``fetch_epoch()`` (on_conflict="epoch")
     starved: bool = False            # the BFS session hit its retry budget
     degraded: bool = False           # answered off a recovering server's
-    # pinned epoch (set by the server, ROADMAP.md queue A8)
+    # pinned pre-failure epoch (set by ``GraphCoServer``)
 
     def paths(self):
         """[(found, keys)] per pair: witness paths via the fused BFS."""
         return self._materialize()
+
+
+def index_fresh_at(index: ReachIndex | None, ring) -> int | None:
+    """The newest RETAINED epoch whose version vector equals the index's
+    build stamp, or None (DESIGN.md §13): the freshness comparison moved
+    from the live head to a retained epoch. The stamp crosses to the host
+    once per lookup."""
+    if index is None or ring is None:
+        return None
+    return ring.epoch_of_versions(index.versions.cpu().numpy(),
+                                  index.capacity)
 
 
 def reach_session(fetch_state, index: ReachIndex | None, pairs, *,
@@ -134,12 +149,16 @@ def reach_session(fetch_state, index: ReachIndex | None, pairs, *,
     ``query.py`` for ``join_backend``) answers every decided query, and the
     freshness comparison is the snapshot validation. Undecided queries run
     the ``get_paths_session`` fallback; a stale index sends the whole batch
-    there. ``ring`` (validation at a retained epoch) waits for the epoch
-    ring, ROADMAP.md queue A7."""
-    if ring is not None:
-        raise NotImplementedError(
-            "ring-validated serving needs the epoch ring (ROADMAP.md queue "
-            "A7), which is not ported yet")
+    there.
+
+    Stale-at-head index + ``ring`` + ``on_conflict="epoch"``: if the ring
+    retains the epoch the index was built from AND that epoch is at or
+    after the query's admitted epoch (read through ``fetch_epoch`` before
+    the state fetch), the batch is PINNED there: decided pairs come off the
+    index, undecided pairs take a collect over the ring's reconstruction of
+    that epoch, and ``pinned_epoch`` says where the answers linearize. An
+    index made stale by a mutation that happened before the query never
+    serves. Otherwise the whole batch falls back to the BFS session."""
     pairs = list(pairs)
     q = len(pairs)
 
@@ -153,7 +172,7 @@ def reach_session(fetch_state, index: ReachIndex | None, pairs, *,
     if q == 0:
         return ReachSessionResult([], 0, 0, False, 0, materialize)
 
-    def index_serve(state):
+    def index_serve(state, fallback_fetch, pinned_epoch):
         dev = state.device
         ks = torch.tensor([p[0] for p in pairs], dtype=torch.int32, device=dev)
         ls = torch.tensor([p[1] for p in pairs], dtype=torch.int32, device=dev)
@@ -168,7 +187,7 @@ def reach_session(fetch_state, index: ReachIndex | None, pairs, *,
         if und.size:
             st: dict = {}
             out, rounds = get_paths_session(
-                fetch_state, [pairs[i] for i in und], max_rounds=max_rounds,
+                fallback_fetch, [pairs[i] for i in und], max_rounds=max_rounds,
                 backend=backend, engine=engine, on_conflict=on_conflict,
                 fetch_epoch=fetch_epoch, stats=st)
             starved = bool(st.get("starved", False))
@@ -176,20 +195,28 @@ def reach_session(fetch_state, index: ReachIndex | None, pairs, *,
                 found[int(i)] = bool(f)
         return ReachSessionResult(found, q - int(und.size), int(und.size),
                                   False, rounds, materialize,
-                                  starved=starved)
+                                  pinned_epoch=pinned_epoch, starved=starved)
 
     def session_body():
+        # the admitted epoch is read BEFORE the state fetch: it bounds the
+        # query's invocation from below, so a pin >= it lies inside it
         admitted = fetch_epoch()[0] if fetch_epoch is not None else None
         state = fetch_state()
         if index_fresh(index, state):
-            return index_serve(state)
+            return index_serve(state, fetch_state, None)
         if on_conflict == "epoch" and admitted is not None:
             with _trace.span("index.ring_validate", admitted=admitted):
                 t0 = time.perf_counter()
-                # without a ring no retained epoch can pin the batch
+                pin = index_fresh_at(index, ring)
+                ok = pin is not None and pin >= admitted
+                pinned = ring.state_at(pin) if ok else None
                 if _trace.enabled():
                     _obs_registry().observe("index.ring_validate_s",
                                             time.perf_counter() - t0)
+            if ok:
+                # only a racing mutation separates the index from the head:
+                # undecided pairs collect over the frozen reconstruction
+                return index_serve(pinned, lambda: pinned, pin)
         st: dict = {}
         with _trace.span("index.fallback", pairs=q):
             t0 = time.perf_counter()

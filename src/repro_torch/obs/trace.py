@@ -1,14 +1,17 @@
-"""Hierarchical spans + Perfetto export for the port (the slice of
-``repro.obs.trace`` that the main path calls).
+"""Hierarchical spans + Perfetto export for the port: the port of
+``repro.obs.trace`` (DESIGN.md §14).
 
 One process-global recorder collects spans: named, timed, attributed
 intervals. It is off by default; disabled, ``span()`` returns a shared
 no-op object, so the instrumented hot path costs one attribute check.
-Enable with ``REPRO_TRACE=1`` (read at import) or ``capture()``;
-``save(path)`` writes Chrome trace-event JSON that Perfetto and
-``chrome://tracing`` load. Span names match the JAX package's
-(``bfs.session``, ``bfs.superstep``, ``session.get_paths``,
-``collect.round``), so the same trace tools read both.
+Enable with ``REPRO_TRACE=1`` (read at import), ``enable()`` or
+``capture()``; ``save(path)`` writes Chrome trace-event JSON that Perfetto
+and ``chrome://tracing`` load (``None`` uses ``REPRO_TRACE_PATH``). Span
+and counter names match the JAX package's (``bfs.session``,
+``bfs.superstep``, ``session.get_paths``, ``collect.round``,
+``ingest.round``, ``ingest.admit``, ``ingest.fused_apply``,
+``ring.state_at``, ``index.ring_validate``, ...), so the same trace tools
+read both.
 
 ``fence(x)`` makes a span measure device work: while tracing it calls
 ``torch.cuda.synchronize()`` when ``x`` holds CUDA tensors.
@@ -112,6 +115,10 @@ class TraceRecorder:
         with self._lock:
             self.enabled = False
 
+    def clear(self) -> None:
+        with self._lock:
+            self._events = []
+
     def events(self) -> list[dict]:
         with self._lock:
             return list(self._events)
@@ -128,6 +135,11 @@ class TraceRecorder:
 _RECORDER = TraceRecorder()
 
 
+def recorder() -> TraceRecorder:
+    """The process-global recorder."""
+    return _RECORDER
+
+
 def enabled() -> bool:
     """The host-side tracing switch every instrumented layer checks."""
     return _RECORDER.enabled
@@ -140,9 +152,23 @@ def span(name: str, **attrs):
     return _LiveSpan(_RECORDER, name, attrs)
 
 
+def null_span(name: str = "", **attrs):
+    """``span``'s disabled form, whatever the recorder's state: for a layer
+    that records no span of its own even while tracing is on."""
+    return _NULL
+
+
 def counter(name: str, value) -> None:
     """Record a counter sample (no-op when disabled)."""
     _RECORDER.counter(name, value)
+
+
+def enable(fresh: bool = False) -> None:
+    _RECORDER.start(fresh=fresh)
+
+
+def disable() -> None:
+    _RECORDER.stop()
 
 
 def save(path: str | None = None) -> str:

@@ -436,7 +436,11 @@ def test_traced_session_observes_index_metrics(graph):
 def test_unported_paths_raise(graph):
     _, t = graph
     ti = TI.build_index(t, 3)
-    with pytest.raises(NotImplementedError, match="A7"):
-        TI.reach_session(lambda: t, ti, [(0, 1)], ring=object())
+    # ring-validated serving is ported (ROADMAP.md queue A7; its pinned
+    # path is held against JAX in tests/test_torch_serving.py): a fresh
+    # index serves without consulting the ring
+    res = TI.reach_session(lambda: t, ti, [(0, 1)], ring=object())
+    assert res.from_index + res.fellback == 1 and not res.stale
+    assert res.pinned_epoch is None
     with pytest.raises(TypeError, match="A10"):
         TI.build_index(object())
