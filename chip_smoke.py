@@ -147,6 +147,37 @@ Phases (each prints lines; the last line is the JSON result):
      and waits, the records' host memory, peak device memory and the
      phase's launches (``serving_launches`` in the kernels line); B1, B2,
      B4 and B3 must have launched
+  9. durable ingest at full width (``build/chip_smoke_durable/``, cleared
+     at the start, removed at the end; the phase fails, naming the free
+     space, when the disk holds less than it needs): (a) an ``IngestPool``
+     on the phase-3 end state with a ``WriteAheadLog``, a
+     ``GraphCheckpointer(keep=2)`` (a checkpoint at epoch 0, then one every
+     8 rounds) and phase 8's client mix, 32 rounds with one crash per
+     stage, in order ``wal-append``, ``wal-fsync``, ``ckpt-mid-write`` (at
+     a cadence checkpoint) and ``post-publish-pre-ack``; after each,
+     ``recover`` on the card: every acked batch is in the recovered
+     linearization, the pre-crash linearization is its prefix, all six
+     fields equal the pre-crash published state at its epoch
+     (``torch.equal``), and the stage's own effect holds (a torn frame
+     dropped and no epoch gained; one epoch gained; the previous step
+     plus the WAL tail; the published round kept), then ``resume_pool``
+     and on; (b) ``python -m repro_torch.launch.durable_serve`` at
+     capacity 69,632 killed by SIGKILL after step 7 and recovered for 3
+     more steps: return code -9, no acked batch lost, the recovered epoch
+     at least the last acked one, serving resumed past it; (c) on the
+     last recovered SCALE-16 state, a Q = 64 ``get_paths_session`` and a
+     ``get_path_session`` equal scipy, with B1, B2 and B3 launched; (d)
+     ``GraphCoServer(wal_dir=, ckpt_every=4)`` on phase 8's SCALE-12
+     graph: a planned ``post-publish-pre-ack`` crash, reads pinned while
+     degraded, writes R_RECOVERING, ``recover_now`` and ``handle_crash``
+     keep all six fields bit for bit, the endpoints answer as scipy.
+     Printed beside the card: the durable round wall by part (admit,
+     fused apply, WAL append with fsync, publish) and lanes/s beside
+     phase 8's, WAL bytes a record, checkpoint save wall and bytes,
+     ``recover`` wall by part (checkpoint load, copy to the card, ring
+     load, replay ms a record), the directory's filesystem type and free
+     space, and the phase's launches (``durable_launches`` in the kernels
+     line)
 
 It imports nothing of JAX and nothing of the JAX package. It exits non-zero
 without a result when no CUDA device is present or the port is missing.
@@ -155,7 +186,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -186,6 +219,18 @@ SERVE_MAX_ROUNDS = 3
 SERVER_SCALE, SERVER_CAPACITY = 12, 4160
 SERVER_CLIENTS, SERVER_ROUNDS, SERVER_RETAIN = 4, 10, 8
 SERVER_LANDMARKS, SERVER_LOAD_LANES = 256, 8192
+DURABLE_ROUNDS, DURABLE_CKPT_EVERY, DURABLE_KEEP = 32, 8, 2
+# (round a crash stage is armed in, stage): each fires in that round,
+# ckpt-mid-write at the first cadence checkpoint after it (round 21)
+DURABLE_CRASHES = ((2, "wal-append"), (5, "wal-fsync"),
+                   (14, "ckpt-mid-write"), (26, "post-publish-pre-ack"))
+DURABLE_DIR = ROOT / "build" / "chip_smoke_durable"
+# the child's keep=3 checkpoints and one being written, ~1.9 GB each; part
+# (a) needs 2 + a torn one and is removed before the child starts
+DURABLE_NEED_BYTES = 8 << 30
+DURABLE_CHILD_STEPS, DURABLE_CHILD_CRASH, DURABLE_CHILD_RESUME = 12, 7, 3
+DURABLE_CHILD_CLIENTS, DURABLE_CHILD_CKPT_EVERY = 8, 4
+DURABLE_SERVER_CKPT_EVERY = 4
 CLOSURE_SCALE, CLOSURE_CAPACITY, CLOSURE_Q = 12, 4160, 256
 COMPLETE_SCALE, COMPLETE_CAPACITY, COMPLETE_PAIRS = 10, 1088, 1024
 WIDE_QS = (1024, 1025)       # the index closures' Q, and a ragged group
@@ -1557,6 +1602,8 @@ def phase_serving(torch, st, deg_src, rng):
         f"{ps.retries}, wait {ps.wait_s * 1e3:.3f} ms total / "
         f"{ps.wait_max_s * 1e3:.3f} ms max, epochs {lo}..{hi}, "
         f"{len(ring)} records retained")
+    undurable = {"round_ms": med(spans["ingest.round"]),
+                 "lanes_s": lanes_applied / (sum(spans["ingest.round"]) / 1e3)}
     log(f"serving round wall ms (median over {len(spans['ingest.round'])}; "
         f"trace spans, fused apply fenced): round "
         f"{med(spans['ingest.round']):.3f}, admit "
@@ -1646,20 +1693,17 @@ def phase_serving(torch, st, deg_src, rng):
         f"{peak / 1e9:.3f} GB ({(peak - base_mem) / 1e9:.3f} GB above the "
         f"{base_mem / 1e9:.3f} GB held at the start); phase 8 launches "
         f"{launches}; phase 8 took {time.perf_counter() - t_phase:.1f} s")
-    return launches, pool
+    return launches, pool, undurable
 
 
-def serve_end_to_end(torch, rng):
-    """``GraphCoServer(ingest=True, index=True)`` on a Graph500 SCALE-12
-    graph loaded through its own ``submit``; every endpoint's answer
-    equals scipy on the state it was answered on. Returns the launches
-    counted in it (the counts keep running for the phase)."""
-    from repro_torch.core import (OP_ADD_E, OP_ADD_V, R_EDGE_ADDED,
-                                  R_RECOVERING, R_TRUE)
+def loaded_server(rng, **kw):
+    """``GraphCoServer(ingest=True, index=True)`` (and ``kw``) with a
+    Graph500 SCALE-12 graph loaded through its own ``submit`` and its index
+    built: (server, the AddEdge ops loaded, load seconds)."""
+    from repro_torch.core import OP_ADD_E, OP_ADD_V, R_EDGE_ADDED, R_TRUE
     from repro_torch.runtime.fault import FailurePolicy
     from repro_torch.runtime.serve_loop import GraphCoServer
 
-    c0 = counts()
     n = 1 << SERVER_SCALE
     u, v = graph500_edges(SERVER_SCALE, EDGEFACTOR, rng)
     e = np.unique(u * n + v)
@@ -1668,7 +1712,7 @@ def serve_end_to_end(torch, rng):
                       index_landmarks=SERVER_LANDMARKS,
                       retain_epochs=SERVER_RETAIN,
                       failure_policy=FailurePolicy(max_restarts=3),
-                      device=DEVICE)
+                      device=DEVICE, **kw)
     t0 = time.perf_counter()
     res = [s.submit([(OP_ADD_V, k) for k in range(n)])]
     for i in range(0, len(edges), SERVER_LOAD_LANES):
@@ -1681,6 +1725,19 @@ def serve_end_to_end(torch, rng):
                              "edge")
     if s.index_tick() is not True or s.index_tick() is not False:
         raise AssertionError("index_tick did not build once")
+    return s, edges, load_s
+
+
+def serve_end_to_end(torch, rng):
+    """``GraphCoServer(ingest=True, index=True)`` on a Graph500 SCALE-12
+    graph loaded through its own ``submit``; every endpoint's answer
+    equals scipy on the state it was answered on. Returns the launches
+    counted in it (the counts keep running for the phase)."""
+    from repro_torch.core import OP_ADD_V, R_RECOVERING
+
+    c0 = counts()
+    n = 1 << SERVER_SCALE
+    s, edges, load_s = loaded_server(rng)
     deg = np.flatnonzero(s.state.ecnt.cpu().numpy()[:n] > 0)
     for r in range(SERVER_ROUNDS):
         for c in range(SERVER_CLIENTS):
@@ -1788,6 +1845,384 @@ def serving_work(pool, rng):
 
     return {"pump": pump, "ring_push": push,
             "state_at_depth_8": lambda: pool.state_at(pool.epoch - 8)}
+
+
+# ----------------------------------------------------------------------------
+# Phase 9: durable ingest at full width
+# ----------------------------------------------------------------------------
+def fs_of(path: Path) -> str:
+    """Filesystem type and free space of the mount holding ``path``: on a
+    tmpfs or overlay mount an fsync costs nothing, so the type stands
+    beside every fsync time."""
+    real = os.path.realpath(path)
+    best = ("?", "?")
+    with open("/proc/mounts") as f:
+        for line in f:
+            dev, mnt, fstype = line.split()[:3]
+            if (real == mnt or real.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) >= len(best[0]):
+                best = (mnt, fstype)
+    free = shutil.disk_usage(path).free
+    return f"{best[1]} at {best[0]}, {free / 1e9:.1f} GB free"
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+def phase_durable(torch, st, deg_src, rng, card, undurable):
+    """Phase 9: (a) crash stages in process on the phase-3 end state, (b)
+    the durable entry point killed by SIGKILL and recovered, (c) sessions
+    on the recovered state, (d) ``GraphCoServer`` degrade/recover with a
+    WAL. Returns the phase's launches."""
+    from repro_torch.core import get_path_session, get_paths_session
+    from repro_torch.obs import trace
+    from repro_torch.runtime.fault import FaultInjector, SimulatedCrash
+    from repro_torch.runtime.ingest import IngestPool
+    from repro_torch.runtime.recovery import (GraphCheckpointer, recover,
+                                              resume_pool)
+    from repro_torch.runtime.wal import WriteAheadLog
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    DURABLE_DIR.mkdir(parents=True)
+    free = shutil.disk_usage(DURABLE_DIR).free
+    if free < DURABLE_NEED_BYTES:
+        raise AssertionError(
+            f"phase 9 needs {DURABLE_NEED_BYTES / 1e9:.1f} GB free under "
+            f"{DURABLE_DIR}, the disk has {free / 1e9:.1f} GB")
+    fs = fs_of(DURABLE_DIR)
+    log(f"durable directory {DURABLE_DIR}: {fs}; card {card}")
+    reset_counts()
+    n = 1 << SCALE
+    adir = DURABLE_DIR / "pool"
+    wal_path, ckpt_dir = str(adir / "wal.log"), str(adir / "ckpt")
+    pool_kw = dict(retain_epochs=SERVE_RETAIN,
+                   max_coalesce_lanes=SERVE_COALESCE,
+                   ckpt_every=DURABLE_CKPT_EVERY)
+    wals = [WriteAheadLog(wal_path)]
+    ckpt = GraphCheckpointer(ckpt_dir, keep=DURABLE_KEEP)
+    publish_ms, ckpt_ms = [], []
+
+    def instrument(p):
+        """Time each publish and each whole checkpoint (the device -> host
+        copy, which the ``ckpt.save`` span leaves out, included)."""
+        publish, checkpoint = p._publish, p.checkpoint_now
+
+        def timed_publish(state):
+            epoch, ms = ms_of(torch, lambda: publish(state))
+            publish_ms.append(ms)
+            return epoch
+
+        def timed_checkpoint(**kw):
+            _, ms = ms_of(torch, lambda: checkpoint(**kw))
+            ckpt_ms.append(ms)
+
+        p._publish, p.checkpoint_now = timed_publish, timed_checkpoint
+        return p
+
+    pool = instrument(IngestPool(st, wal=wals[0], ckpt=ckpt, **pool_kw))
+    pool.checkpoint_now()                   # the base every replay starts on
+    base_bytes = dir_bytes(Path(ckpt_dir) / "step_000000000")
+    queued = {}
+
+    def refill(r):
+        for c in range(SERVE_CLIENTS):
+            t = queued.get(c)
+            if t is None or t.status != "queued":
+                queued[c] = pool.submit(f"c{c}", client_ops(
+                    rng, n, SERVE_LANES, removes=False))
+        t = queued.get("x")
+        if r % 4 == 0 and (t is None or t.status != "queued"):
+            queued["x"] = pool.submit("x", client_ops(
+                rng, n, SERVE_EXCL_LANES, removes=True))
+
+    recs, effects = [], []
+    arm = dict(DURABLE_CRASHES)
+
+    def after_crash(dead, exc):
+        """The dead pool's published prefix against what ``recover``
+        rebuilds from disk; returns the resumed pool."""
+        nonlocal ckpt
+        pub_epoch, pub_state = dead.snapshot_epoch()
+        pre = list(dead.linearization)
+        acked = [b for b, t in dead.tickets.items() if t.status == "applied"]
+        unacked = [b for b in pre if dead.tickets[b].status != "applied"]
+        prev_step = ckpt.latest_step()
+        torn_dir = any(x.startswith(".tmp_step_")
+                       for x in os.listdir(ckpt_dir))
+        dead.wal.close()
+        wal = WriteAheadLog(wal_path)       # a restart: reopen, truncate
+        gck = GraphCheckpointer(ckpt_dir, keep=DURABLE_KEEP)
+        rec, ms = ms_of(torch, lambda: recover(
+            gck, wal, capacity=CAPACITY, retain_epochs=SERVE_RETAIN,
+            device=DEVICE))
+        where = f"after the {exc.stage} crash at epoch {exc.epoch}"
+        lin = list(rec.linearization)
+        lost = sorted(set(acked) - set(lin))
+        if lost or lin[:len(pre)] != pre:
+            raise AssertionError(f"{where}: acked batches lost {lost[:5]} or "
+                                 f"the published prefix rewritten")
+        at = rec.state if rec.epoch == pub_epoch else \
+            rec.ring.state_at(pub_epoch)
+        same_result(at, pub_state, f"{where}: recovered epoch {pub_epoch}")
+        if exc.stage == "wal-append":
+            ok = wal.stats.torn_drops > 0 and rec.epoch == pub_epoch
+            effect = f"torn frame of {wal.stats.torn_drops} bytes dropped"
+        elif exc.stage == "wal-fsync":
+            ok = rec.epoch == pub_epoch + 1 == exc.epoch
+            effect = "the durable unpublished round replayed (+1 epoch)"
+        elif exc.stage == "ckpt-mid-write":
+            ok = (torn_dir and rec.ckpt_step == prev_step < exc.epoch
+                  and rec.replayed_rounds == rec.epoch - prev_step > 0
+                  and rec.epoch == pub_epoch)
+            effect = (f"restored step {rec.ckpt_step} + "
+                      f"{rec.replayed_rounds} WAL records")
+        else:
+            ok = rec.epoch == pub_epoch and unacked \
+                and set(unacked) <= set(lin)
+            effect = f"{len(unacked)} published unacked batches kept"
+        if not ok:
+            raise AssertionError(f"{where}: the stage's effect is wrong: "
+                                 f"epoch {rec.epoch}, published {pub_epoch}, "
+                                 f"step {rec.ckpt_step} (before {prev_step})")
+        effects.append(f"{exc.stage}: epoch {pub_epoch} -> {rec.epoch}, "
+                       f"{effect}")
+        recs.append((exc.stage, rec, ms))
+        wals.append(wal)
+        ckpt = gck
+        new = instrument(resume_pool(rec, wal=wal, ckpt=gck, **pool_kw))
+        new.tickets.update(dead.tickets)
+        queued.clear()                      # unacked batches are resubmitted
+        return new
+
+    with trace.capture() as trec:
+        for r in range(DURABLE_ROUNDS):
+            refill(r)
+            if r in arm:
+                pool.fault = FaultInjector(plan=[("*", arm[r])])
+            try:
+                pool.pump()
+            except SimulatedCrash as exc:
+                pool = after_crash(pool, exc)
+        spans = {}
+        for ev in trec.events():
+            if "dur" not in ev or (ev["name"] == "ingest.round"
+                                   and "applied" not in ev.get("args", {})):
+                continue          # a counter, or a round a crash cut short
+            spans.setdefault(ev["name"], []).append(ev["dur"] / 1e3)
+    if [s for s, _, _ in recs] != [s for _, s in DURABLE_CRASHES]:
+        raise AssertionError(f"crashes {[s for s, _, _ in recs]}, planned "
+                             f"{[s for _, s in DURABLE_CRASHES]}")
+    lanes = sum(len(t.ops) for t in pool.tickets.values()
+                if t.status == "applied")
+    rounds_s = sum(spans["ingest.round"]) / 1e3
+    ckpt_in_rounds = sum(ckpt_ms[1:]) / 1e3
+    wal_records = sum(w.stats.records for w in wals)
+    wal_bytes = sum(w.stats.bytes for w in wals)
+    med = statistics.median
+    log(f"durable pool ({card}): {DURABLE_ROUNDS} rounds of phase 8's mix, "
+        f"WAL + checkpoint every {DURABLE_CKPT_EVERY} rounds (keep "
+        f"{DURABLE_KEEP}), epochs 0..{pool.epoch}; crashes: "
+        + "; ".join(effects))
+    log(f"durable round wall ms (median over {len(spans['ingest.round'])} "
+        f"whole rounds; {card}; {fs}): round {med(spans['ingest.round']):.3f}, admit "
+        f"{med(spans['ingest.admit']):.3f}, fused apply "
+        f"{med(spans['ingest.fused_apply']):.3f}, WAL append with fsync "
+        f"{med(spans['wal.append']):.3f} (max {max(spans['wal.append']):.3f})"
+        f", publish {med(publish_ms):.3f}; {lanes} lanes applied, "
+        f"{lanes / rounds_s:.0f} lanes/s of round wall "
+        f"({lanes / (rounds_s - ckpt_in_rounds):.0f} without the cadence "
+        f"checkpoints) beside phase 8's undurable "
+        f"{undurable['lanes_s']:.0f} lanes/s (round "
+        f"{undurable['round_ms']:.3f} ms)")
+    log(f"WAL: {wal_records} records, {wal_bytes} bytes, "
+        f"{wal_bytes / wal_records:.0f} bytes a record; checkpoint "
+        f"(blocking: D2H copies + ring dump, write, fsync, rename): step 0 "
+        f"{ckpt_ms[0] / 1e3:.3f} s, {base_bytes / 1e9:.3f} GB; cadence "
+        + ", ".join(f"{x / 1e3:.3f} s" for x in ckpt_ms[1:])
+        + "; of which the ckpt.save spans (write, fsync, rename) "
+        + ", ".join(f"{x / 1e3:.3f} s" for x in spans["ckpt.save"])
+        + f" ({card}; {fs})")
+    for stage, rec, ms in recs:
+        p = rec.parts
+        log(f"recover after {stage} ({card}): {ms:.1f} ms wall: checkpoint "
+            f"load {p['ckpt_load'] * 1e3:.1f} ms (step {rec.ckpt_step}), copy "
+            f"to the card {p['to_device'] * 1e3:.1f} ms, ring load "
+            f"{p['ring_load'] * 1e3:.1f} ms, replay {rec.replayed_rounds} "
+            f"records {p['replay'] * 1e3:.1f} ms "
+            f"({p['replay'] * 1e3 / max(1, rec.replayed_rounds):.2f} ms a "
+            f"record), {rec.skipped_records} skipped")
+    last = recs[-1][1].state
+    for w in wals:
+        w.close()
+    del pool, recs
+    shutil.rmtree(adir)
+
+    child_s = durable_child(DURABLE_DIR / "child", card)
+
+    # (c) sessions on the recovered SCALE-16 state
+    c0 = counts()
+    pairs = list(zip(rng.choice(deg_src, QUERIES).tolist(),
+                     rng.integers(0, n, QUERIES).tolist()))
+    (out, nr), s_ms = ms_of(torch, lambda: get_paths_session(
+        lambda: last, pairs))
+    alive = set(last.vkey[last.valive].tolist())
+    k, l = next(p for p in pairs if p[0] in alive)
+    pr, p_ms = ms_of(torch, lambda: get_path_session(lambda: last, k, l))
+    check_answers(last, pairs + [(k, l)], out + [(
+        bool(pr.found), pr.keys[:int(pr.length)].tolist())],
+        "sessions on the recovered state")
+    c1 = counts()
+    session_launches = {x: c1[x] - c0[x] for x in c1}
+    require_launched(session_launches, BFS_KERNELS,
+                     "on the recovered state")
+    log(f"recovered SCALE-16 state: get_paths_session (Q={QUERIES}) "
+        f"{s_ms:.3f} ms, {nr} collects, found {sum(f for f, _ in out)}; "
+        f"get_path_session {p_ms:.3f} ms; answers equal scipy; launches "
+        f"{session_launches}")
+    del last
+
+    durable_server(torch, rng, DURABLE_DIR / "server")
+    launches = counts()
+    shutil.rmtree(DURABLE_DIR)
+    log(f"durable checks passed; child processes {child_s:.1f} s; phase 9 "
+        f"launches {launches}; phase 9 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def durable_child(wdir: Path, card: str) -> float:
+    """(b): ``repro_torch.launch.durable_serve`` at full capacity, killed
+    by SIGKILL after step 7, then recovered for 3 steps; no acknowledged
+    batch may be lost. Returns the children's wall seconds."""
+    report = wdir / "report.jsonl"
+    base = [sys.executable, "-m", "repro_torch.launch.durable_serve",
+            "--wal-dir", str(wdir), "--report", str(report),
+            "--capacity", str(CAPACITY), "--keys", str(1 << SCALE),
+            "--clients", str(DURABLE_CHILD_CLIENTS), "--lanes",
+            str(SERVE_LANES), "--ckpt-every", str(DURABLE_CHILD_CKPT_EVERY),
+            "--device", DEVICE]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    p = subprocess.run(base + ["--steps", str(DURABLE_CHILD_STEPS),
+                               "--crash-at-step", str(DURABLE_CHILD_CRASH)],
+                       env=env, capture_output=True, text=True, timeout=600)
+    t1 = time.perf_counter()
+    if p.returncode != -9:
+        raise AssertionError(f"the durable child returned {p.returncode}, "
+                             f"want -9 (SIGKILL): {p.stderr[-2000:]}")
+    ckpts = sorted(os.listdir(wdir / "ckpt"))
+    p2 = subprocess.run(base + ["--recover", "--steps",
+                                str(DURABLE_CHILD_RESUME)],
+                        env=env, capture_output=True, text=True, timeout=600)
+    t2 = time.perf_counter()
+    if p2.returncode != 0:
+        raise AssertionError(f"the recovering child returned "
+                             f"{p2.returncode}: {p2.stderr[-2000:]}")
+    lines = [json.loads(x) for x in report.read_text().splitlines()]
+    acked, last_epoch = set(), 0
+    for rec in lines:
+        if rec["type"] == "recovered":
+            break
+        acked.update(rec["acked"])
+        last_epoch = rec["epoch"]
+    recovered = next(r for r in lines if r["type"] == "recovered")
+    done = next(r for r in lines if r["type"] == "done")
+    lost = acked - set(recovered["linearization"])
+    if lost or recovered["epoch"] < last_epoch \
+            or done["epoch"] <= recovered["epoch"] \
+            or not set(recovered["linearization"]) <= set(
+                done["linearization"]):
+        raise AssertionError(f"kill -9 round trip: {len(lost)} acked "
+                             f"batches lost, recovered epoch "
+                             f"{recovered['epoch']} (last acked "
+                             f"{last_epoch}), done {done['epoch']}")
+    log(f"kill -9 round trip: durable_serve --capacity {CAPACITY} --keys "
+        f"{1 << SCALE} --clients {DURABLE_CHILD_CLIENTS} --lanes "
+        f"{SERVE_LANES} --ckpt-every {DURABLE_CHILD_CKPT_EVERY}: killed "
+        f"after step {DURABLE_CHILD_CRASH} (rc -9) in {t1 - t0:.1f} s with "
+        f"{len(acked)} batches acked up to epoch {last_epoch}, checkpoints "
+        f"{ckpts}; --recover --steps {DURABLE_CHILD_RESUME} in "
+        f"{t2 - t1:.1f} s: recovered at epoch {recovered['epoch']} with "
+        f"every acked batch, served to epoch {done['epoch']} ({card}); "
+        f"{p2.stdout.strip().splitlines()[0]}")
+    shutil.rmtree(wdir)
+    return t2 - t0
+
+
+def durable_server(torch, rng, wdir: Path):
+    """(d): ``GraphCoServer(wal_dir=, ckpt_every=4)`` on phase 8's SCALE-12
+    graph: a planned post-publish-pre-ack crash, degraded reads pinned and
+    writes rejected, ``recover_now`` and ``handle_crash`` keep all six
+    fields, then every endpoint answers as scipy."""
+    from repro_torch.core import OP_ADD_V, R_RECOVERING, R_TRUE
+    from repro_torch.runtime.fault import FaultInjector, SimulatedCrash
+
+    n = 1 << SERVER_SCALE
+    s, edges, load_s = loaded_server(rng, wal_dir=str(wdir),
+                                     ckpt_every=DURABLE_SERVER_CKPT_EVERY)
+    deg = np.flatnonzero(s.state.ecnt.cpu().numpy()[:n] > 0)
+    for r in range(SERVER_ROUNDS):
+        for c in range(SERVER_CLIENTS):
+            s.submit_client(f"s{c}", client_ops(rng, n, SERVE_LANES,
+                                                removes=c == 3 and r % 3 == 0))
+        s.pump()
+    s.flush()
+    saves = s.pool.stats.ckpt_saves
+    s.pool.fault = FaultInjector(plan=[("*", "post-publish-pre-ack")])
+    crashed = s.submit_client("s0", client_ops(rng, n, 8, removes=False))
+    try:
+        s.pump()
+    except SimulatedCrash:
+        pass
+    else:
+        raise AssertionError("the planned post-publish-pre-ack crash did "
+                             "not fire")
+    s.enter_degraded()
+    pinned_e, pinned = s._pinned
+    pairs = list(zip(rng.choice(deg, QUERIES).tolist(),
+                     rng.integers(0, n, QUERIES).tolist()))
+    out, _ = s.get_paths(pairs[:8])
+    check_answers(pinned, pairs[:8], out, "durable server degraded get_paths")
+    rej = s.submit([(OP_ADD_V, n + 1)])
+    tick = s.submit_client("s1", [(OP_ADD_V, n + 2)])
+    if (rej != R_RECOVERING).any() or tick.status != "rejected" \
+            or s.state is not pinned:
+        raise AssertionError("degraded writes were not rejected or reads "
+                             "not pinned")
+    t0 = time.perf_counter()
+    s.recover_now()
+    recover_s = time.perf_counter() - t0
+    if s.degraded or s.pool.epoch != pinned_e \
+            or crashed.batch_id not in s.pool.linearization:
+        raise AssertionError("recover_now lost the published round")
+    same_result(s.state, pinned, "recover_now")
+    wait = s.handle_crash()
+    same_result(s.state, pinned, "handle_crash")
+    st = s.state
+    out, _ = s.get_paths(pairs)
+    check_answers(st, pairs, out, "durable server get_paths")
+    alive = set(st.vkey[st.valive].tolist())
+    k, l = next(p for p in pairs if p[0] in alive)
+    pr = s.get_path(k, l)
+    check_answers(st, [(k, l)], [(bool(pr.found),
+                                  pr.keys[:int(pr.length)].tolist())],
+                  "durable server get_path")
+    s.index_tick()
+    res = s.get_reach(pairs)
+    check_reach(st, pairs, res.found, "durable server get_reach")
+    if (s.submit([(OP_ADD_V, n + 3)]) != R_TRUE).any():
+        raise AssertionError("writes not accepted after recovery")
+    log(f"durable GraphCoServer: Graph500 SCALE {SERVER_SCALE} loaded with "
+        f"the WAL in {load_s:.1f} s ({len(edges)} edges), {saves} cadence "
+        f"checkpoints (every {DURABLE_SERVER_CKPT_EVERY} rounds); planned "
+        f"post-publish-pre-ack crash at epoch {pinned_e}; degraded reads "
+        f"pinned, writes R_RECOVERING; recover_now {recover_s * 1e3:.1f} ms "
+        f"and handle_crash (backoff {wait} s) keep all six fields; "
+        f"get_paths, get_path, get_reach (from_index {res.from_index}) "
+        f"equal scipy; recoveries {s.recoveries}")
+    s.pool.wal.close()
 
 
 PROFILE_MARK = "measured"
@@ -2430,7 +2865,8 @@ def main(argv=None) -> int:
                                                 index_rng)
     phase_profile(torch, index_work(index, ist, ipairs))
     serve_rng = np.random.default_rng([args.seed, 6])
-    slaunches, pool = phase_serving(torch, st, deg_src, serve_rng)
+    slaunches, pool, undurable = phase_serving(torch, st, deg_src,
+                                               serve_rng)
     phase_profile(torch, serving_work(pool, serve_rng))
     del pool
     # each kernel's launches on the path that runs it: B1-B3 the main
@@ -2441,8 +2877,12 @@ def main(argv=None) -> int:
     kernels = phase_kernel_times(torch, st, pairs, dpairs, index, ist,
                                  ipairs, launches, single["B2"], timer,
                                  dense_rng)
+    dur_launches = phase_durable(torch, st, deg_src,
+                                 np.random.default_rng([args.seed, 7]), card,
+                                 undurable)
     for key, k in zip(KERNEL_META, kernels):
         k["serving_launches"] = slaunches[key]
+        k["durable_launches"] = dur_launches[key]
     log(f"card: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

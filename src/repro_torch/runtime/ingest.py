@@ -36,12 +36,21 @@ result that held its lanes is discarded and recomputed from the same base
 without it). R_TABLE_FULL grows the PRE-round state and replays the whole
 fused batch.
 
+Durability (DESIGN.md §16): with a ``WriteAheadLog`` every round is
+committed in this order: ``_wal_commit`` appends and fsyncs the round's
+record, the linearization grows and ``_publish`` flips the epoch, the
+tickets are acked, and ``_maybe_checkpoint`` takes a ``GraphCheckpointer``
+snapshot every ``ckpt_every`` rounds and truncates the log behind it. A
+kill anywhere loses only unacknowledged work. The ``FaultInjector``'s
+process-level stages (client ``"*"``) land their durable effects:
+``wal-append`` a torn frame, ``wal-fsync`` a durable record never
+published, ``ckpt-mid-write`` a checkpoint written but never renamed,
+``post-publish-pre-ack`` a published round never acked; without a WAL the
+first two only raise ``SimulatedCrash``, as the JAX pool does.
+
 Device: batches are built on the state's device and each round's results
-cross to the host once. Durability waits for the port's WAL and
-checkpointer (ROADMAP.md queue A9): ``wal=`` and ``ckpt=`` raise
-``NotImplementedError``, and ``_wal_commit`` honours the ``wal-append`` /
-``wal-fsync`` crash stages without a log, as the JAX pool does. Sharded
-states (``mesh=``) wait for queue A10 and raise ``TypeError``.
+cross to the host once. Sharded states (``mesh=``) wait for ROADMAP.md
+queue A10 and raise ``TypeError``.
 """
 from __future__ import annotations
 
@@ -60,6 +69,7 @@ from repro_torch.obs import trace as _trace
 from repro_torch.obs.metrics import MetricsRegistry, StatsView
 from repro_torch.obs.metrics import global_registry as _obs_registry
 from repro_torch.runtime.fault import SimulatedCrash
+from repro_torch.runtime.wal import WalRecord
 
 _VERTEX_OPS = (OP_ADD_V, OP_REM_V, OP_CON_V)
 _EDGE_OPS = (OP_ADD_E, OP_REM_E, OP_CON_E)
@@ -148,8 +158,7 @@ class Ticket:
 
 class IngestStats(StatsView):
     """Admission observability, stored under ``ingest.<field>`` in the
-    pool's registry (DESIGN.md §12, §14). The ``wal_*`` and ``ckpt_*``
-    fields stay 0 until the port has a WAL (queue A9)."""
+    pool's registry (DESIGN.md §12, §14, §16)."""
 
     _PREFIX = "ingest"
     _SPEC = {
@@ -199,14 +208,10 @@ class IngestPool:
                  pad_lanes: bool = True, fault=None, on_grow=None,
                  clock=time.monotonic, retain_epochs: int = 64,
                  registry: MetricsRegistry | None = None,
-                 wal=None, ckpt=None):
+                 wal=None, ckpt=None, ckpt_every: int = 0):
         if mesh is not None:
             raise TypeError("IngestPool takes a GraphState on one device: "
                             "sharded states wait for ROADMAP.md queue A10")
-        if wal is not None or ckpt is not None:
-            raise NotImplementedError(
-                "durable ingestion (wal=, ckpt=) waits for the port's WAL "
-                "and checkpointer, ROADMAP.md queue A9")
         self.auto_grow = auto_grow
         self.max_inflight = int(max_inflight)
         self.max_coalesce_lanes = int(max_coalesce_lanes)
@@ -214,8 +219,15 @@ class IngestPool:
         self.fault = fault
         self.on_grow = on_grow
         self.clock = clock
-        # the owning server stamps its index freshness here, for the
-        # checkpoints of queue A9
+        # durability: a WriteAheadLog makes every acked round replayable; a
+        # GraphCheckpointer at a round cadence bounds the log (ckpt_every=0
+        # disables cadence checkpoints)
+        self.wal = wal
+        self.ckpt = ckpt
+        self.ckpt_every = int(ckpt_every)
+        self._rounds_since_ckpt = 0
+        # the owning server stamps its index freshness here so cadence
+        # checkpoints carry it (runtime/serve_loop.py index_tick)
         self.index_stamp: dict | None = None
         self.locks = EntityLockTable()
         self.registry = registry if registry is not None else MetricsRegistry()
@@ -439,8 +451,9 @@ class IngestPool:
                     self._abort(t)
                 continue                     # recompute from the same base
             now = self.clock()
-            # the durability point comes before the flip and any ack
-            self._wal_commit()
+            # the durability point: the round's record is fsync-durable
+            # before the epoch flips and before any client is acked
+            self._wal_commit(live, res, lanes, pad)
             with self._mutex:
                 for t in live:
                     # part of the published prefix: appended before _publish
@@ -451,7 +464,13 @@ class IngestPool:
                 self.stats.coalesce_lanes_max = max(
                     self.stats.coalesce_lanes_max, lanes)
                 epoch = self._publish(state)
+                if self.wal is not None:
+                    self.stats.wal_records = self.wal.stats.records
+                    self.stats.wal_bytes = self.wal.stats.bytes
+                    self.stats.wal_append_s = self.wal.stats.append_s
             if self._crash_fires("post-publish-pre-ack"):
+                # durable and published, never acked: recovery must
+                # reproduce it bit for bit
                 raise SimulatedCrash("post-publish-pre-ack", epoch)
             off = 0
             with self._mutex:
@@ -467,21 +486,85 @@ class IngestPool:
                 self.stats.queue_depth = len(self._queue)
             for t in live:
                 t.epoch = epoch
+            self._maybe_checkpoint(epoch, state)
             return len(live)
 
     def _crash_fires(self, stage: str) -> bool:
         """Process-level crash stages, planned under the client ``"*"``."""
         return self.fault is not None and self.fault.should_die("*", stage)
 
-    def _wal_commit(self) -> None:
-        """The round's durability point (DESIGN.md §16). Without a WAL (the
-        port has none until queue A9) it only honours a planned
-        ``wal-append`` / ``wal-fsync`` crash, as the JAX pool does, so a
+    def _wal_commit(self, live: list[Ticket], res, lanes: int, pad: int
+                    ) -> None:
+        """Append and fsync the round's linearized record (DESIGN.md §16):
+        every ``_publish`` and ticket ack of a round comes after it. Every
+        number is made a Python int, and each op keeps its client's length,
+        so the record's bytes are the JAX pool's. Without a WAL it only
+        honours a planned ``wal-append`` / ``wal-fsync`` crash, so a
         schedule can kill an undurable pool."""
         epoch = self._slots[self._cur][0] + 1
-        if (self._crash_fires("wal-append")
-                or self._crash_fires("wal-fsync")):
+        if self.wal is None:
+            if (self._crash_fires("wal-append")
+                    or self._crash_fires("wal-fsync")):
+                raise SimulatedCrash("wal-append", epoch)
+            return
+        record = WalRecord(
+            epoch=epoch,
+            ops=[[int(x) for x in op] for t in live for op in t.ops],
+            pad=int(pad),
+            clients=[t.client_id for t in live],
+            batch_ids=[t.batch_id for t in live],
+            results=[int(x) for x in res[:lanes]],
+            lanes=int(lanes),
+        )
+        if self._crash_fires("wal-append"):
+            # kill mid-append: a torn, checksum-invalid frame hits disk;
+            # reopening truncates it (the round was never acked)
+            self.wal.append_torn(record)
             raise SimulatedCrash("wal-append", epoch)
+        before_s = self.wal.stats.append_s
+        with _trace.span("wal.append", epoch=epoch, lanes=lanes):
+            self.wal.append(record)
+        if _trace.enabled():
+            _obs_registry().observe("wal.append_s",
+                                    self.wal.stats.append_s - before_s)
+        if self._crash_fires("wal-fsync"):
+            # record durable, epoch never published, nobody acked: replay
+            # must be idempotent about it
+            raise SimulatedCrash("wal-fsync", epoch)
+
+    def _maybe_checkpoint(self, epoch: int, state) -> None:
+        """Cadence checkpoint + WAL truncation behind it (every epoch is
+        covered by the checkpoint XOR the WAL tail)."""
+        if self.ckpt is None or self.ckpt_every <= 0:
+            return
+        self._rounds_since_ckpt += 1
+        if self._rounds_since_ckpt < self.ckpt_every:
+            return
+        self.checkpoint_now(epoch=epoch, state=state)
+
+    def checkpoint_now(self, *, epoch: int | None = None, state=None) -> None:
+        """Force one durable graph checkpoint of the published head (the
+        cadence path, a server on shutdown, measurements)."""
+        if self.ckpt is None:
+            return
+        if epoch is None or state is None:
+            epoch, state = self.snapshot_epoch()
+        kwargs = dict(epoch=epoch, state=state, ring=self.ring,
+                      linearization=self.linearization,
+                      epoch_log=self.epoch_log, next_batch_id=self._next_id,
+                      index_stamp=self.index_stamp)
+        if self._crash_fires("ckpt-mid-write"):
+            # tmp dir fully written, rename never happens: recovery loads
+            # the PREVIOUS published step
+            self.ckpt.save_torn(**kwargs)
+            raise SimulatedCrash("ckpt-mid-write", epoch)
+        self.ckpt.save_graph(blocking=True, **kwargs)
+        self._rounds_since_ckpt = 0
+        with self._mutex:
+            self.stats.ckpt_saves += 1
+            if self.wal is not None:
+                self.wal.truncate_through(epoch)
+                self.stats.wal_truncations = self.wal.stats.truncations
 
     def flush(self) -> int:
         """Pump until the queue drains; returns total batches applied. The

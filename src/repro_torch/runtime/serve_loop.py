@@ -12,10 +12,15 @@ queries read it. With ``index=True`` reachability answers come from the
 versioned 2-hop index when it is fresh, or pinned at a retained epoch, and
 from the fused BFS double collect otherwise.
 
+With ``wal_dir=`` the pool writes ``<wal_dir>/wal.log`` and, every
+``ckpt_every`` rounds, a graph checkpoint under ``<wal_dir>/ckpt``
+(DESIGN.md §16): ``recover_now`` (and so ``handle_crash`` and the
+heartbeat path) rebuilds the pool from checkpoint + WAL replay on the
+server's device, carrying the resolved tickets and the index stamp
+forward. Without a WAL it only un-pins, as the JAX server does.
+
 The server creates its state on the card unless ``device`` names another.
-Not ported yet: ``wal_dir=`` (the WAL and checkpoint recovery, ROADMAP.md
-queue A9; ``recover_now`` without a WAL only un-pins, as the JAX server
-does without ``wal_dir``), ``mesh=`` (queue A10) and the LM ``serve()``
+Not ported yet: ``mesh=`` (ROADMAP.md queue A10) and the LM ``serve()``
 loop (queue A12). ``ServeStats`` is ported so that its metric names exist.
 """
 from __future__ import annotations
@@ -36,6 +41,9 @@ from repro_torch.obs import trace as _trace
 from repro_torch.obs.metrics import StatsView
 from repro_torch.obs.metrics import global_registry as _obs_registry
 from repro_torch.runtime.ingest import IngestPool, Ticket, batch_footprint
+from repro_torch.runtime.recovery import (GraphCheckpointer, recover,
+                                          resume_pool)
+from repro_torch.runtime.wal import WriteAheadLog
 
 
 class ServeStats(StatsView):
@@ -127,14 +135,11 @@ class GraphCoServer:
                  max_inflight: int = 8, max_coalesce_lanes: int = 256,
                  fault=None, on_conflict: str | None = None,
                  retain_epochs: int = 64, wal_dir: str | None = None,
-                 heartbeat=None, failure_policy=None, device=None):
+                 ckpt_every: int = 0, heartbeat=None, failure_policy=None,
+                 device=None):
         if mesh is not None:
             raise TypeError("GraphCoServer serves one device: sharded "
                             "states wait for ROADMAP.md queue A10")
-        if wal_dir is not None:
-            raise NotImplementedError(
-                "wal_dir= (WAL + checkpoint recovery) waits for the port's "
-                "WAL and checkpointer, ROADMAP.md queue A9")
         self.auto_grow = auto_grow
         self.query_engine = query_engine
         self.grow_events = 0
@@ -159,16 +164,23 @@ class GraphCoServer:
         self.heartbeat = heartbeat
         self.failure_policy = failure_policy
         self._pinned = None            # (epoch, state) while degraded
+        self._capacity = int(capacity)   # seats a recovery with no checkpoint
+        self._wal_dir = wal_dir
         self._state = make_graph(capacity, device=device)
         self.pool = None
         if ingest:
             def bump_grow():
                 self.grow_events += 1
 
+            wal = ckpt = None
+            if wal_dir is not None:
+                wal = WriteAheadLog(f"{wal_dir}/wal.log")
+                ckpt = GraphCheckpointer(f"{wal_dir}/ckpt")
             self.pool = IngestPool(
                 self._state, auto_grow=auto_grow, max_inflight=max_inflight,
                 max_coalesce_lanes=max_coalesce_lanes, fault=fault,
-                on_grow=bump_grow, retain_epochs=retain_epochs)
+                on_grow=bump_grow, retain_epochs=retain_epochs, wal=wal,
+                ckpt=ckpt, ckpt_every=ckpt_every)
         # a pool-backed server resolves starved sessions wait-free against
         # its epoch ring; a bare server keeps the capped retry
         self.on_conflict = on_conflict if on_conflict is not None else (
@@ -275,11 +287,37 @@ class GraphCoServer:
             _trace.counter("serve.degraded", 1)
 
     def recover_now(self) -> None:
-        """Leave degraded mode. Without a WAL there is nothing durable to
-        recover from, so reads un-pin and writes are accepted again, as
-        the JAX server does without ``wal_dir``."""
+        """Restart-from-recovery: rebuild the pool from checkpoint + WAL
+        replay on the server's device, with the dead pool's settings;
+        reads un-pin, writes are accepted again. Without a WAL there is
+        nothing durable to recover from, so it only un-pins."""
+        if self.pool is None or self._wal_dir is None:
+            self.degraded = False
+            self._pinned = None
+            return
+        with _trace.span("serve.recover"):
+            old = self.pool
+            old.wal.close()
+            wal = WriteAheadLog(f"{self._wal_dir}/wal.log")
+            rec = recover(old.ckpt, wal, capacity=self._capacity,
+                          auto_grow=old.auto_grow,
+                          retain_epochs=old.ring.retain,
+                          device=self._state.device)
+            self.pool = resume_pool(
+                rec, auto_grow=old.auto_grow, max_inflight=old.max_inflight,
+                max_coalesce_lanes=old.max_coalesce_lanes, fault=old.fault,
+                on_grow=old.on_grow, retain_epochs=old.ring.retain, wal=wal,
+                ckpt=old.ckpt, ckpt_every=old.ckpt_every)
+            # carry forward what recovery cannot know: tickets resolved
+            # before the crash (clients hold references to them)
+            self.pool.tickets.update(old.tickets)
+            self.pool.index_stamp = old.index_stamp
         self.degraded = False
         self._pinned = None
+        self.recoveries += 1
+        if _trace.enabled():
+            _obs_registry().set("serve.degraded", 0)
+            _trace.counter("serve.degraded", 0)
 
     def handle_crash(self, exc=None) -> float:
         """One suspect/crash -> degrade -> backoff -> recover cycle; returns

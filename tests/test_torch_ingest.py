@@ -1,15 +1,16 @@
 """The port's ingest pool (repro_torch.runtime.ingest) against the JAX
-package's (repro.runtime.ingest), driven through the same schedules of
-``repro.testing.schedules``: seeded random interleavings with head reads,
-hostile epoch-resolved reads and time-travel reads, every interleaving of
-a small program, ``FaultInjector`` plans at ``admit`` and ``apply`` and the
-``wal-append`` / ``wal-fsync`` / ``post-publish-pre-ack`` crash stages
-without a WAL, grow-and-replay from capacity 8, and exclusive RemoveVertex
-batches. Compared: every ticket (status, results, epoch, retries), the
-linearization, ``epoch_log``, the reads, the stats apart from the
-``wait*_s`` wall times, the ring window and the final six arrays. Also: 4
-threads submitting at once, checked by serial replay through the port's
-oracle; and ``wal=`` / ``ckpt=`` / ``mesh=`` raise."""
+package's (repro.runtime.ingest), each driven by its own package's
+schedule harness (``repro.testing.schedules`` and its port
+``repro_torch.testing.schedules``) on the same schedules: seeded random
+interleavings with head reads, hostile epoch-resolved reads and
+time-travel reads, every interleaving of a small program, ``FaultInjector``
+plans at ``admit`` and ``apply`` and the ``wal-append`` / ``wal-fsync`` /
+``post-publish-pre-ack`` crash stages without a WAL, grow-and-replay from
+capacity 8, and exclusive RemoveVertex batches. Compared: every ticket
+(status, results, epoch, retries), the linearization, ``epoch_log``, the
+reads, the stats apart from the ``wait*_s`` wall times, the ring window,
+the crash and the final six arrays. Also: 4 threads submitting at once,
+checked by serial replay through the port's oracle; and ``mesh=`` raises."""
 import random
 import threading
 
@@ -19,80 +20,18 @@ import pytest
 import repro_torch.core as T
 from repro.runtime.fault import FaultInjector as JFault
 from repro.testing.schedules import (enumerate_interleavings,
-                                     gen_client_programs, random_schedule,
-                                     run_schedule)
+                                     gen_client_programs, random_schedule)
+from repro.testing.schedules import run_schedule as jrun
 from repro_torch.convert import state_to_numpy
 from repro_torch.core.graph import to_networkx_like
-from repro_torch.core.snapshot import get_paths_session
 from repro_torch.runtime.fault import FaultInjector as TFault
-from repro_torch.runtime.fault import SimulatedCrash
 from repro_torch.runtime.ingest import (IngestPool, _next_pow2,
                                         batch_footprint)
+from repro_torch.testing import schedules as tsched
+from repro_torch.testing.schedules import _norm, check_aborted_invisible
+from repro_torch.testing.schedules import run_schedule as trun
 
 WALL = ("wait_s", "wait_max_s")
-
-
-def _norm(op):
-    op = tuple(int(x) for x in op) + (-1,) * (4 - len(op))
-    return op[:4]
-
-
-def _hostile_epoch_read(pool, pairs, max_rounds=3):
-    """The port side of ``schedules._hostile_epoch_read``: every state
-    fetch first commits a round that bumps each query source's ecnt, so
-    the session must resolve at a pinned published epoch."""
-    srcs = sorted({int(k) for k, _ in pairs})
-    last_epoch = [pool.epoch]
-
-    def hostile_fetch():
-        fresh = 9000 + pool.stats.submitted
-        pool.submit("_hostile", [_norm((T.OP_ADD_V, fresh))]
-                    + [_norm((T.OP_ADD_E, k, fresh)) for k in srcs])
-        pool.pump()
-        epoch, snap = pool.snapshot_epoch()
-        last_epoch[0] = epoch
-        return snap
-
-    st: dict = {}
-    out, _ = get_paths_session(hostile_fetch, pairs, max_rounds=max_rounds,
-                               on_conflict="epoch",
-                               fetch_epoch=pool.snapshot_epoch, stats=st)
-    epoch = st["epoch"] if st["epoch"] is not None else last_epoch[0]
-    return (int(epoch), list(pairs), out, "epoch", bool(st["starved"]))
-
-
-def run_port(schedule, *, capacity=32, fault=None, **kw):
-    """``schedules.run_schedule`` step for step on the port's pool (CPU);
-    returns (pool, reads, crash (stage, epoch) or None)."""
-    pool = IngestPool(T.make_graph(capacity, device="cpu"), fault=fault,
-                      **kw)
-    reads = []
-    try:
-        for step in schedule.steps:
-            if step[0] == "submit":
-                pool.submit(step[1], step[2])
-            elif step[0] == "pump":
-                pool.pump()
-            elif step[0] == "flush":
-                pool.flush()
-            elif step[0] == "read":
-                epoch, snap = pool.snapshot_epoch()
-                out, _ = get_paths_session(lambda: snap, step[1])
-                reads.append((epoch, list(step[1]), out, "head", False))
-            elif step[0] == "read_epoch":
-                reads.append(_hostile_epoch_read(pool, step[1]))
-            elif step[0] == "tt":
-                lo, hi = pool.epoch_window()
-                epoch = max(lo, hi - int(step[1]))
-                snap = pool.state_at(epoch)
-                out, _ = get_paths_session(lambda: snap, step[2])
-                reads.append((epoch, list(step[2]), out, "tt", False))
-            else:
-                raise ValueError(f"unknown step {step!r}")
-        pool.flush()
-    except SimulatedCrash as exc:
-        return pool, reads, (exc.stage, exc.epoch)
-    return pool, reads, None
 
 
 def _tickets(pool):
@@ -106,20 +45,26 @@ def _stats(pool):
     return {k: v for k, v in pool.stats.snapshot().items() if k not in WALL}
 
 
-def _assert_same_run(jtrace, tpool, treads, tcrash):
-    jpool = jtrace.pool
+def _reads(trace):
+    return [(r.epoch, r.pairs, r.results, r.mode, r.starved)
+            for r in trace.reads]
+
+
+def _crash(trace):
+    return None if trace.crash is None else (trace.crash.stage,
+                                             trace.crash.epoch_attempted)
+
+
+def _assert_same_run(jtrace, ttrace):
+    jpool, tpool = jtrace.pool, ttrace.pool
     assert _tickets(tpool) == _tickets(jpool)
     assert tpool.linearization == jpool.linearization
     assert tpool.epoch_log == jpool.epoch_log
     assert _stats(tpool) == _stats(jpool)
     assert tpool.epoch_window() == jpool.epoch_window()
     assert tpool.ring.evicted == jpool.ring.evicted
-    jreads = [(r.epoch, r.pairs, r.results, r.mode, r.starved)
-              for r in jtrace.reads]
-    assert treads == jreads
-    jcrash = (None if jtrace.crash is None else
-              (jtrace.crash.stage, jtrace.crash.epoch_attempted))
-    assert tcrash == jcrash
+    assert _reads(ttrace) == _reads(jtrace)
+    assert _crash(ttrace) == _crash(jtrace)
     for what, t, j in (("head", tpool._head, jpool._head),
                        ("snapshot", tpool.snapshot(), jpool.snapshot())):
         for f, a, b in zip(T.GraphState._fields, state_to_numpy(t), j):
@@ -135,10 +80,10 @@ def _assert_same_run(jtrace, tpool, treads, tcrash):
 
 
 def _both(schedule, *, jfault=None, tfault=None, **kw):
-    jtrace = run_schedule(schedule, fault=jfault, **kw)
-    tpool, treads, tcrash = run_port(schedule, fault=tfault, **kw)
-    _assert_same_run(jtrace, tpool, treads, tcrash)
-    return jtrace, tpool
+    jtrace = jrun(schedule, fault=jfault, **kw)
+    ttrace = trun(schedule, fault=tfault, device="cpu", **kw)
+    _assert_same_run(jtrace, ttrace)
+    return jtrace, ttrace
 
 
 @pytest.mark.parametrize("seed,conflict,remv", [(0, 0.5, 0.1), (1, 1.0, 0.1),
@@ -181,13 +126,14 @@ def _fault_schedule(seed=11):
 def test_fault_plans_match_jax(plan, delays):
     jf = JFault(plan=list(plan), delays=dict(delays))
     tf = TFault(plan=list(plan), delays=dict(delays))
-    jtrace, tpool = _both(_fault_schedule(), jfault=jf, tfault=tf,
-                          capacity=40)
+    jtrace, ttrace = _both(_fault_schedule(), jfault=jf, tfault=tf,
+                           capacity=40)
     assert tf.fired == jf.fired and sorted(tf.fired) == sorted(plan)
     if plan[0][0] != "*":
-        assert tpool.stats.aborted == len(plan)
+        assert ttrace.pool.stats.aborted == len(plan)
+        check_aborted_invisible(ttrace)
     else:
-        assert jtrace.crash is not None
+        assert ttrace.crash is not None
 
 
 def test_grow_and_replay_from_capacity_8_matches_jax():
@@ -198,7 +144,8 @@ def test_grow_and_replay_from_capacity_8_matches_jax():
     programs["c0"].insert(0, [(T.OP_ADD_V, k, -1, -1)
                               for k in range(300, 311)])
     schedule = random_schedule(rng, programs, tt_read_rate=0.3)
-    jtrace, tpool = _both(schedule, capacity=8)
+    jtrace, ttrace = _both(schedule, capacity=8)
+    tpool = ttrace.pool
     assert tpool.stats.grow_events == jtrace.pool.stats.grow_events >= 1
     assert tpool.snapshot().capacity > 8
 
@@ -208,13 +155,32 @@ def test_exclusive_remove_vertex_batches_run_alone_as_in_jax():
     programs = gen_client_programs(rng, clients=3, batches_per_client=3,
                                    conflict_rate=0.0, remv_rate=0.5)
     schedule = random_schedule(rng, programs, pump_rate=0.2)
-    jtrace, tpool = _both(schedule, capacity=40, max_inflight=4)
+    _, ttrace = _both(schedule, capacity=40, max_inflight=4)
+    tpool = ttrace.pool
     excl = [t for t in tpool.tickets.values() if t.exclusive]
     assert excl
     for t in excl:
         same_epoch = [u for u in tpool.tickets.values()
                       if u.status == "applied" and u.epoch == t.epoch]
         assert same_epoch == [t]
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_the_port_harness_draws_the_jax_schedules(seed):
+    import repro.testing.schedules as jsched
+
+    got = []
+    for M in (jsched, tsched):
+        rng = random.Random(seed)
+        progs = M.gen_client_programs(rng, clients=3, batches_per_client=3,
+                                      conflict_rate=0.6, remv_rate=0.2)
+        sched = M.random_schedule(rng, progs, epoch_read_rate=0.3,
+                                  tt_read_rate=0.3)
+        small = {c: b[:2] for c, b in progs.items() if c != "c2"}
+        got.append((progs, sched.steps,
+                    [x.steps for x in M.enumerate_interleavings(small,
+                                                                limit=5)]))
+    assert got[1] == got[0]
 
 
 def test_batch_footprint_and_buckets():
@@ -267,11 +233,7 @@ def test_four_threads_submit_at_once_and_replay_serially():
     assert bool(T.transpose_invariant(head))
 
 
-@pytest.mark.parametrize("kw,err", [({"wal": object()}, NotImplementedError),
-                                    ({"ckpt": object()}, NotImplementedError),
-                                    ({"mesh": object()}, TypeError)],
-                         ids=["wal", "ckpt", "mesh"])
-def test_durability_and_mesh_wait_for_later_slices(kw, err):
-    with pytest.raises(err, match="A9" if err is NotImplementedError
-                       else "A10"):
+@pytest.mark.parametrize("kw", [{"mesh": object()}], ids=["mesh"])
+def test_durability_and_mesh_wait_for_later_slices(kw):
+    with pytest.raises(TypeError, match="A10"):
         IngestPool(T.make_graph(8, device="cpu"), **kw)

@@ -7,8 +7,8 @@ degraded mode through ``enter_degraded``, ``handle_crash``,
 ``check_health`` and the restart budget) gives equal answers, and
 ``get_metrics`` has the same keys and values apart from wall seconds.
 Also ``reach_session(ring=...)`` pinned at a retained epoch and
-``index_fresh_at``, the parts that wait for later slices, the default
-device and the import boundary."""
+``index_fresh_at``, the part that waits for a later slice (``mesh=``),
+the default device and the import boundary."""
 import dataclasses
 import os
 import subprocess
@@ -240,13 +240,9 @@ def test_ring_validation_span_and_metric_are_kept():
     assert "index.ring_validate" in got[1][0] and got[1][1] == 2
 
 
-@pytest.mark.parametrize("kw,err", [({"wal_dir": "somewhere"},
-                                     NotImplementedError),
-                                    ({"mesh": object()}, TypeError)],
-                         ids=["wal_dir", "mesh"])
-def test_server_parts_that_wait_for_later_slices_raise(kw, err):
-    with pytest.raises(err, match="A9" if err is NotImplementedError
-                       else "A10"):
+@pytest.mark.parametrize("kw", [{"mesh": object()}], ids=["mesh"])
+def test_server_parts_that_wait_for_later_slices_raise(kw):
+    with pytest.raises(TypeError, match="A10"):
         TServer(capacity=8, ingest=True, device="cpu", **kw)
 
 
