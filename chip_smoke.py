@@ -148,7 +148,7 @@ Phases (each prints lines; the last line is the JSON result):
      phase's launches (``serving_launches`` in the kernels line); B1, B2,
      B4 and B3 must have launched
   9. durable ingest at full width (``build/chip_smoke_durable/``, cleared
-     at the start, removed at the end; the phase fails, naming the free
+     at the start, removed after phase 10; the phase fails, naming the free
      space, when the disk holds less than it needs): (a) an ``IngestPool``
      on the phase-3 end state with a ``WriteAheadLog``, a
      ``GraphCheckpointer(keep=2)`` (a checkpoint at epoch 0, then one every
@@ -178,6 +178,33 @@ Phases (each prints lines; the last line is the JSON result):
      load, replay ms a record), the directory's filesystem type and free
      space, and the phase's launches (``durable_launches`` in the kernels
      line)
+ 10. the mesh-sharded graph on the card: phase 3's end state in 8 row
+     blocks of 8,704 rows, all on ``cuda:0`` (``make_graph_mesh(shards=8)``);
+     (a) ``partition.apply_ops_fast`` on phase 3's 8 batches beside the
+     dense engine: codes and the six arrays after ``unshard`` equal; (b) on
+     "hybrid_cuda" (B1 on each block's rows, B2 over its in-rows) a Q = 64
+     ``get_paths_session`` retried under a mutator and a
+     ``get_path_session``: answers equal scipy, ``multi_bfs`` equals the
+     dense engine on every field, the Q = 1 traversal equals the dense
+     single ``bfs``; (c) ``multi_bfs`` on "dense_cuda" (B6 on each block's
+     unpacked rows) and "packed_cuda" equal the dense engine; (d)
+     ``build_index`` on the sharded state over the 1,024 hubs equals the
+     dense build, and a stale ``reach_session`` falls back to the sharded
+     BFS and equals scipy; (e) ``IngestPool(mesh=)`` with its ring for 8
+     rounds of phase 8's mix beside a dense pool (tickets and ``state_at``
+     equal), ``GraphCoServer(mesh=)`` beside a dense server on phase 8's
+     SCALE-12 graph (every endpoint answer and the ``get_metrics``
+     counters equal), ``recover(mesh=)`` of phase 9's ``durable_serve``
+     directory equal to the dense recover; (f) the legacy engines
+     ``dapply_ops`` (equal to ``apply_ops``; AddVertex lanes as HasVertex,
+     since their owner blocks are full), ``dbfs`` (equal to ``bfs``) and
+     ``dget_path_session`` (equal to scipy) at the cell's width; (g)
+     ``make_graph_mesh()`` is the one card, and its one-shard session
+     equals the dense one. Printed beside the card: sharded and dense
+     times of a batch, a Q = 64 session and a single session, supersteps
+     and exchange bytes, launches a superstep, peak memory and the phase's
+     wall; B1, B2 and B6 must launch on the sharded path
+     (``sharded_launches`` in the kernels line)
 
 It imports nothing of JAX and nothing of the JAX package. It exits non-zero
 without a result when no CUDA device is present or the port is missing.
@@ -231,6 +258,10 @@ DURABLE_NEED_BYTES = 8 << 30
 DURABLE_CHILD_STEPS, DURABLE_CHILD_CRASH, DURABLE_CHILD_RESUME = 12, 7, 3
 DURABLE_CHILD_CLIENTS, DURABLE_CHILD_CKPT_EVERY = 8, 4
 DURABLE_SERVER_CKPT_EVERY = 4
+SHARDS = 8                   # phase 10: row blocks of the sharded state
+SHARD_SERVE_ROUNDS = 8       # phase 10(e): pool rounds beside the dense pool
+SHARD_REPS = 3               # phase 10(b): timed sessions of each engine
+SHARD_KERNELS = ("B1", "B2", "B6")
 CLOSURE_SCALE, CLOSURE_CAPACITY, CLOSURE_Q = 12, 4160, 256
 COMPLETE_SCALE, COMPLETE_CAPACITY, COMPLETE_PAIRS = 10, 1088, 1024
 WIDE_QS = (1024, 1025)       # the index closures' Q, and a ragged group
@@ -1168,7 +1199,8 @@ def phase_main(torch, rng, rounds: int):
     log(f"main-path launches: {launches}; per get_paths_session "
         f"{per_session}; per get_path_session {per_single}")
     single = {k: sum(p[k] for p in per_single) for k in launches}
-    return cur["st"], launches, single, pair_sets[0], batches[0], deg_src
+    return (cur["st"], launches, single, pair_sets[0], batches[:rounds],
+            deg_src)
 
 
 def same_result(got, want, what):
@@ -2085,7 +2117,8 @@ def phase_durable(torch, st, deg_src, rng, card, undurable):
 
     durable_server(torch, rng, DURABLE_DIR / "server")
     launches = counts()
-    shutil.rmtree(DURABLE_DIR)
+    # the durable_serve directory stays for phase 10's recover(mesh=)
+    shutil.rmtree(DURABLE_DIR / "server")
     log(f"durable checks passed; child processes {child_s:.1f} s; phase 9 "
         f"launches {launches}; phase 9 took "
         f"{time.perf_counter() - t_phase:.1f} s")
@@ -2147,7 +2180,6 @@ def durable_child(wdir: Path, card: str) -> float:
         f"{t2 - t1:.1f} s: recovered at epoch {recovered['epoch']} with "
         f"every acked batch, served to epoch {done['epoch']} ({card}); "
         f"{p2.stdout.strip().splitlines()[0]}")
-    shutil.rmtree(wdir)
     return t2 - t0
 
 
@@ -2223,6 +2255,369 @@ def durable_server(torch, rng, wdir: Path):
         f"get_paths, get_path, get_reach (from_index {res.from_index}) "
         f"equal scipy; recoveries {s.recoveries}")
     s.pool.wal.close()
+
+
+def sharded_server_run(s, rng):
+    """The endpoint sequence phase 10 drives on a dense and a mesh-sharded
+    ``GraphCoServer`` from the same ``rng`` stream: (answers, the state the
+    sessions were answered on, the pairs)."""
+    n = 1 << SERVER_SCALE
+    deg = np.flatnonzero(s.state.ecnt.cpu().numpy()[:n] > 0)
+    out = []
+    for r in range(SERVER_ROUNDS):
+        tickets = [s.submit_client(f"s{c}", client_ops(
+            rng, n, SERVE_LANES, removes=c == 3 and r % 3 == 0))
+            for c in range(SERVER_CLIENTS)]
+        s.pump()
+        out.append([(t.status, None if t.results is None
+                     else t.results.tolist()) for t in tickets])
+    s.flush()
+    pairs = list(zip(rng.choice(deg, QUERIES).tolist(),
+                     rng.integers(0, n, QUERIES).tolist()))
+    st = s.state
+    out.append(s.get_paths(pairs))
+    alive = set(st.vkey[st.valive].tolist())
+    k, l = next(p for p in pairs if p[0] in alive)
+    pr = s.get_path(k, l)
+    out.append((bool(pr.found), pr.keys[:int(pr.length)].tolist(),
+                int(pr.rounds)))
+    for tick in (False, True):
+        if tick and not s.index_tick():
+            raise AssertionError("index_tick did not refresh")
+        res = s.get_reach(pairs)
+        out.append((res.found, res.from_index, res.fellback, res.stale))
+    out.append(s.get_reach_counts([p[0] for p in pairs[:16]]).tolist())
+    lo, hi = s.epoch_window()
+    out.append((lo, hi, s.get_reach_at(pairs, lo).found,
+                s.epoch_diff(lo, hi).rows))
+    return out, st, pairs
+
+
+def same_metrics(a: dict, b: dict, what: str):
+    """``get_metrics`` of two servers equal on the server, ring and pool
+    counters (wall-clock values and the process-global registry apart)."""
+    keys = [k for k in b if k.split(".")[0] in ("server", "ring", "ingest")
+            and not k.endswith("_s") and not isinstance(b[k], dict)]
+    bad = {k: (a.get(k), b[k]) for k in keys if a.get(k) != b[k]}
+    if bad or sorted(a) != sorted(b):
+        raise AssertionError(f"{what}: get_metrics differ: {bad}")
+    return len(keys)
+
+
+def phase_sharded(torch, st, deg_src, batches, rng, card):
+    """Phase 10: the mesh-sharded graph on one card (module docstring).
+    Returns the launches of the sharded engines (``sharded_launches``)."""
+    from repro_torch.convert import op_batch_from_numpy
+    from repro_torch.core import (OP_ADD_V, OP_CON_V, apply_ops,
+                                  apply_ops_fast, bfs, find_slots,
+                                  get_path_session, get_paths_session,
+                                  multi_bfs)
+    from repro_torch.core import distributed, partition
+    from repro_torch.core.distributed import make_graph_mesh
+    from repro_torch.index import build_index, reach_session
+    from repro_torch.obs import trace
+    from repro_torch.runtime.ingest import IngestPool
+    from repro_torch.runtime.recovery import GraphCheckpointer, recover
+    from repro_torch.runtime.wal import WriteAheadLog
+
+    n = 1 << SCALE
+    t_phase = time.perf_counter()
+    sync(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    launched = dict.fromkeys(counts(), 0)    # the sharded engines' launches
+
+    def sharded(fn):
+        return counted(launched, fn)
+
+    def ints(xs):
+        return torch.tensor(xs, dtype=torch.int32, device=DEVICE)
+
+    mesh = make_graph_mesh(shards=SHARDS)
+    if mesh.distinct_devices != (st.device,):
+        raise AssertionError(f"{SHARDS} shards on one card: {mesh}")
+    sh, shard_ms = ms_of(torch, lambda: partition.shard_state(mesh, st))
+    log(f"sharded: Graph500 SCALE {SCALE} state in {SHARDS} row blocks of "
+        f"{sh.rows_per_shard} rows x {sh.words} words on "
+        f"{mesh.devices[0]} (2 x {SHARDS} blocks, "
+        f"{2 * sum(b.numel() for b in sh.adj_packed) * 4 / 1e9:.3f} GB); "
+        f"shard_state {shard_ms:.1f} ms")
+
+    # (a) mutation beside the dense engine, phase 3's batches
+    dense, apply_d, apply_s = st, [], []
+    for r, b in enumerate(batches):
+        (dense2, dres), d_ms = ms_of(torch, lambda: apply_ops_fast(dense, b))
+        (sh2, sres), s_ms = ms_of(torch, lambda: sharded(
+            lambda: partition.apply_ops_fast(sh, b)))
+        if not torch.equal(sres, dres):
+            raise AssertionError(f"sharded batch {r}: result codes differ")
+        same_result(partition.unshard(sh2), dense2, f"sharded batch {r}")
+        dense, sh = dense2, sh2
+        apply_d.append(d_ms)
+        apply_s.append(s_ms)
+    del dense2, sh2
+    med = statistics.median
+    log(f"(a) partition.apply_ops_fast == apply_ops_fast on {len(batches)} "
+        f"batches of {LANES} lanes (codes + six arrays after unshard)")
+
+    # (b) sessions on "hybrid_cuda": a mutator commits on the first fetches
+    pairs = list(zip(rng.choice(deg_src, QUERIES).tolist(),
+                     rng.integers(0, n, QUERIES).tolist()))
+    left = [equal_mix_batch(rng, n, DEVICE) for _ in range(2)]
+    cur, seen = {"s": sh}, []
+
+    def fetch():
+        if left:
+            cur["s"], _ = partition.apply_ops_fast(cur["s"], left.pop(0))
+        seen.append(cur["s"])
+        return cur["s"]
+
+    out, nr = sharded(lambda: get_paths_session(fetch, pairs,
+                                                backend="hybrid_cuda"))
+    if nr <= 2:
+        raise AssertionError(f"the sharded session did not retry ({nr})")
+    sh = seen[-1]
+    dense = partition.unshard(sh)
+    check_answers(dense, pairs, out, "sharded get_paths_session")
+    sk = find_slots(dense, ints([k for k, _ in pairs]))
+    sl = find_slots(dense, ints([l for _, l in pairs]))
+    want = multi_bfs(dense, sk, sl, backend="hybrid_cuda")
+    c0 = dict(launched)
+    with trace.capture() as rec:
+        got = sharded(lambda: partition.multi_bfs(sh, sk, sl,
+                                                  backend="hybrid_cuda"))
+    same_result(got, want, "sharded multi_bfs hybrid_cuda")
+    span = [e for e in rec.events() if e["name"] == "bfs.session.sharded"]
+    xargs = span[0]["args"]
+    steps = int(got.supersteps)
+    per_step = {k: (launched[k] - c0[k]) / steps for k in ("B1", "B2")}
+    alive = set(dense.vkey[dense.valive].tolist())
+    k, l = next(p for p in pairs if p[0] in alive)
+    pr = sharded(lambda: get_path_session(lambda: sh, k, l,
+                                          backend="hybrid_cuda"))
+    check_answers(dense, [(k, l)], [(bool(pr.found),
+                                     pr.keys[:int(pr.length)].tolist())],
+                  "sharded get_path_session")
+    one = sharded(lambda: partition.traverse(sh, sk[:1], sl[:1],
+                                             backend="hybrid_cuda"))
+    ref = bfs(dense, sk[:1], sl[:1], backend="hybrid_cuda")
+    for f, x, y in zip(ref._fields, one, ref):
+        if not torch.equal(x[0], y):
+            raise AssertionError(f"sharded Q = 1 traversal: {f} differs")
+    sess_s, sess_d, single_s, single_d = [], [], [], []
+    for _ in range(SHARD_REPS):
+        sess_s.append(ms_of(torch, lambda: sharded(lambda: get_paths_session(
+            lambda: sh, pairs, backend="hybrid_cuda")))[1])
+        sess_d.append(ms_of(torch, lambda: get_paths_session(
+            lambda: dense, pairs, backend="hybrid_cuda"))[1])
+        single_s.append(ms_of(torch, lambda: sharded(lambda: get_path_session(
+            lambda: sh, k, l, backend="hybrid_cuda")))[1])
+        single_d.append(ms_of(torch, lambda: get_path_session(
+            lambda: dense, k, l, backend="hybrid_cuda"))[1])
+    log(f"(b) sharded get_paths_session (Q={QUERIES}, hybrid_cuda) retried "
+        f"to {nr} collects under a mutator; multi_bfs == dense hybrid_cuda "
+        f"on every field; get_path_session and the Q = 1 traversal == the "
+        f"dense single bfs (B3); answers equal scipy")
+
+    # (c) the other kernel backends on the shards
+    for be in ("dense_cuda", "packed_cuda"):
+        got, be_ms = ms_of(torch, lambda: sharded(
+            lambda: partition.multi_bfs(sh, sk, sl, backend=be)))
+        same_result(got, want, f"sharded multi_bfs {be}")
+        log(f"(c) sharded multi_bfs {be} == dense hybrid_cuda on every "
+            f"field ({be_ms:.1f} ms, Q={QUERIES})")
+        del got
+
+    # (d) the index: a gathered build, and a stale session's sharded fallback
+    hubs = hub_slots(dense, INDEX_LANDMARKS)
+    si, build_ms = ms_of(torch, lambda: sharded(
+        lambda: build_index(sh, landmark_slots=hubs)))
+    same_index(si, build_index(dense, landmark_slots=hubs),
+               "sharded build_index")
+    stale, _ = partition.apply_ops_fast(sh, equal_mix_batch(rng, n, DEVICE))
+    c0 = dict(launched)
+    res = sharded(lambda: reach_session(lambda: stale, si, pairs))
+    fb = {x: launched[x] - c0[x] for x in launched}
+    if not res.stale or res.fellback != len(pairs):
+        raise AssertionError("the stale index served on the sharded state")
+    require_launched(fb, ("B1", "B2"), "in the sharded reach_session "
+                     "fallback")
+    check_reach(partition.unshard(stale), pairs, res.found,
+                "sharded reach_session fallback")
+    del si, stale
+    log(f"(d) build_index over the {INDEX_LANDMARKS} hubs on the sharded "
+        f"state ({build_ms:.1f} ms, gathered) == the dense build; a stale "
+        f"reach_session fell back to the sharded BFS (launches {fb}) and "
+        f"answers as scipy")
+
+    # (e) the pool with its ring, the server, and recovery on the mesh
+    # both pools write a WAL; the sharded one also checkpoints epoch 0,
+    # the base its recover(mesh=) replays every round onto
+    sdir = DURABLE_DIR / "sharded"
+    wals = [WriteAheadLog(str(DURABLE_DIR / "dense_wal.log")),
+            WriteAheadLog(str(sdir / "wal.log"))]
+    dpool = IngestPool(dense, retain_epochs=SERVE_RETAIN,
+                       max_coalesce_lanes=SERVE_COALESCE, wal=wals[0])
+    spool = IngestPool(partition.shard_state(mesh, dense), mesh=mesh,
+                       retain_epochs=SERVE_RETAIN,
+                       max_coalesce_lanes=SERVE_COALESCE, wal=wals[1],
+                       ckpt=GraphCheckpointer(str(sdir / "ckpt"), keep=1))
+    spool.checkpoint_now()
+    round_d, round_s = [], []
+    for r in range(SHARD_SERVE_ROUNDS):
+        progs = [(f"c{c}", client_ops(rng, n, SERVE_LANES, removes=False))
+                 for c in range(SERVE_CLIENTS)]
+        if r % 4 == 0:
+            progs.append(("x", client_ops(rng, n, SERVE_EXCL_LANES,
+                                          removes=True)))
+        tickets = []
+        for pool, walls in ((dpool, round_d), (spool, round_s)):
+            tickets.append([pool.submit(c, ops) for c, ops in progs])
+            rounds, ms = ms_of(torch, lambda: sharded(pool.flush)
+                               if pool is spool else pool.flush())
+            walls.append(ms / max(1, rounds))
+        for a, b in zip(*tickets):
+            if (a.status, a.epoch, a.results.tolist()) != (
+                    b.status, b.epoch, b.results.tolist()):
+                raise AssertionError(f"sharded pool round {r}: ticket "
+                                     f"{a.batch_id} differs")
+    lo, hi = spool.epoch_window()
+    if (lo, hi) != dpool.epoch_window():
+        raise AssertionError("the pools' windows differ")
+    for e in (lo, (lo + hi) // 2, hi):
+        got = spool.state_at(e)      # the newest epoch: the published shards
+        if isinstance(got, partition.ShardedGraphState):
+            got = partition.unshard(got)
+        same_result(got, dpool.state_at(e), f"sharded pool state_at({e})")
+    for w in wals:
+        w.close()
+    rec_w, wal_ms = ms_of(torch, lambda: sharded(lambda: recover(
+        str(sdir / "ckpt"), str(sdir / "wal.log"), mesh=mesh)))
+    if (rec_w.epoch, rec_w.replayed_rounds) != (hi, hi) \
+            or rec_w.linearization != spool.linearization:
+        raise AssertionError("recover(mesh=) of the sharded pool's WAL "
+                             "stopped short")
+    same_result(partition.unshard(rec_w.state),
+                partition.unshard(spool.snapshot()),
+                "recover(mesh=) of the sharded pool")
+    del dpool, spool, rec_w
+    log(f"(e) IngestPool(mesh=) over {SHARD_SERVE_ROUNDS} rounds of phase "
+        f"8's client mix: every ticket and state_at of epochs {lo}, "
+        f"{(lo + hi) // 2}, {hi} == the dense pool's; a round (with a WAL "
+        f"append) {med(round_s):.3f} ms sharded, {med(round_d):.3f} ms "
+        f"dense; recover(mesh=) of its checkpoint at epoch 0 and WAL "
+        f"replayed {hi} records onto the shards == its head in "
+        f"{wal_ms:.1f} ms")
+    seed = int(rng.integers(1 << 30))
+    servers = []
+    for kw in ({}, {"mesh": make_graph_mesh(shards=SHARDS)}):
+        s, _, load_s = loaded_server(np.random.default_rng(seed), **kw)
+        answers, sst, spairs = sharded_server_run(
+            s, np.random.default_rng(seed + 1))
+        servers.append((s, answers, sst, spairs, load_s))
+    (ds, da, dst, _, dload), (ss, sa, sst, spairs, sload) = servers
+    if not isinstance(ss.state, partition.ShardedGraphState) or sa != da:
+        raise AssertionError("GraphCoServer(mesh=) answers differ from the "
+                             "dense server's")
+    check_answers(partition.unshard(sst), spairs, sa[SERVER_ROUNDS][0],
+                  "GraphCoServer(mesh=) get_paths")
+    nm = same_metrics(ss.get_metrics(), ds.get_metrics(),
+                      "GraphCoServer(mesh=)")
+    del servers, ds, ss, dst, sst
+    log(f"(e) GraphCoServer(mesh=) on Graph500 SCALE {SERVER_SCALE} "
+        f"(loaded in {sload:.1f} s; dense {dload:.1f} s): every endpoint "
+        f"answer and {nm} get_metrics counters == the dense server's")
+    wdir = DURABLE_DIR / "child"
+    rec_d = recover(str(wdir / "ckpt"), str(wdir / "wal.log"), device=DEVICE)
+    rec_s, rec_ms = ms_of(torch, lambda: sharded(lambda: recover(
+        str(wdir / "ckpt"), str(wdir / "wal.log"), mesh=mesh)))
+    if (rec_s.epoch, rec_s.linearization) != (rec_d.epoch,
+                                              rec_d.linearization):
+        raise AssertionError("recover(mesh=) reached another epoch")
+    same_result(partition.unshard(rec_s.state), rec_d.state,
+                "recover(mesh=)")
+    log(f"(e) recover(mesh=) of phase 9's durable_serve directory: epoch "
+        f"{rec_s.epoch}, {rec_s.replayed_rounds} records replayed on the "
+        f"shards, six arrays == the dense recover; {rec_ms:.1f} ms")
+    del rec_d, rec_s
+
+    # (f) the legacy fully row-sharded engines at the cell's width
+    opc, k1, k2 = equal_mix(rng, n, LANES)
+    opc[opc == OP_ADD_V] = OP_CON_V          # owner blocks are full
+    lb = op_batch_from_numpy(opc, k1, k2, np.full(LANES, -1), DEVICE)
+    rs = distributed.shard_graph(mesh, dense)
+    (rs2, lres), dapply_ms = ms_of(torch, lambda: distributed.dapply_ops(
+        mesh, rs, lb))
+    spec, sres = apply_ops(dense, lb)
+    got = rs2.gather()
+    if not torch.equal(lres, sres):
+        raise AssertionError("dapply_ops codes differ from apply_ops")
+    for f in ("vkey", "valive", "vver", "adj_packed", "adj_in_packed"):
+        if not torch.equal(getattr(got, f), getattr(spec, f)):
+            raise AssertionError(f"dapply_ops: {f} differs from apply_ops")
+    if not torch.equal(got.ecnt[got.valive], spec.ecnt[spec.valive]):
+        raise AssertionError("dapply_ops: ecnt of a live slot differs")
+    del rs
+    dbfs_ms = []
+    for src in sk[:2].tolist():
+        got_b, b_ms = ms_of(torch, lambda: distributed.dbfs(mesh, rs2, src,
+                                                            -1))
+        dbfs_ms.append(b_ms)
+        ref = bfs(spec, src, -1, backend="hybrid_cuda")
+        for f, x, y in zip(ref._fields, got_b, ref):
+            if not torch.equal(x, y):
+                raise AssertionError(f"dbfs from {src}: {f} differs")
+    # a path to the vertex farthest from the last dbfs source
+    kk, ll = (int(spec.vkey[x]) for x in (src, int(got_b[2].argmax())))
+    (ok, plen, pkeys, prounds), dpath_ms = ms_of(
+        torch, lambda: distributed.dget_path_session(mesh, lambda: rs2,
+                                                     kk, ll))
+    check_answers(spec, [(kk, ll)], [(ok, pkeys)], "dget_path_session")
+    del rs2, got, spec
+    log(f"(f) legacy engines at V = {CAPACITY}: dapply_ops ({LANES} lanes, "
+        f"AddVertex lanes as HasVertex: the owner blocks are full) == "
+        f"apply_ops (codes, five arrays, live ecnt) in {dapply_ms:.1f} ms; "
+        f"dbfs from 2 sources == bfs in "
+        + ", ".join(f"{x:.1f}" for x in dbfs_ms)
+        + f" ms; dget_path_session {dpath_ms:.1f} ms, {prounds} collects, "
+        f"found {ok} ({plen} vertices), equal scipy")
+
+    # (g) the default mesh: every visible card once
+    m1 = make_graph_mesh()
+    if m1.size != torch.cuda.device_count() or m1.size != 1:
+        raise AssertionError(f"make_graph_mesh() on one card: {m1}")
+    s1 = partition.shard_state(m1, dense)
+    o1, _ = sharded(lambda: get_paths_session(lambda: s1, pairs))
+    od, _ = get_paths_session(lambda: dense, pairs)
+    if o1 != od:
+        raise AssertionError("the one-shard session differs from the dense")
+    del s1
+    log(f"(g) make_graph_mesh() = {m1}: its session == the dense one")
+
+    require_launched(launched, SHARD_KERNELS, "on the sharded path")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"sharded vs dense ({card}): apply_ops_fast {med(apply_s):.3f} vs "
+        f"{med(apply_d):.3f} ms/batch (B={LANES}); get_paths_session "
+        f"{med(sess_s):.3f} vs {med(sess_d):.3f} ms (Q={QUERIES}); "
+        f"get_path_session {med(single_s):.3f} vs {med(single_d):.3f} ms")
+    log(f"sharded session (Q={QUERIES}): {xargs['supersteps']} supersteps, "
+        f"exchange {xargs['exchange_bytes']} bytes (supersteps x Q x "
+        f"{sh.words} words x 4 B x {SHARDS} shards)")
+    log(f"sharded launches a superstep: B1 {per_step['B1']:.2f}, B2 "
+        f"{per_step['B2']:.2f} (one a shard on the direction taken)")
+    log(f"sharded peak memory: {peak / 1e9:.3f} GB ({base_mem / 1e9:.3f} "
+        f"GB held at the start)")
+    log(f"phase 10 launches {launched}; phase 10 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    batch = batches[0]
+    work = {   # for the phase-5 profiles, on the sharded state
+        "sharded_apply_ops_fast": lambda: partition.apply_ops_fast(sh, batch),
+        "sharded_get_paths_session": lambda: get_paths_session(
+            lambda: sh, pairs, backend="hybrid_cuda"),
+        "sharded_get_path_session": lambda: get_path_session(
+            lambda: sh, k, l, backend="hybrid_cuda"),
+    }
+    return launched, work
 
 
 PROFILE_MARK = "measured"
@@ -2857,8 +3252,9 @@ def main(argv=None) -> int:
     phase_single_push(torch, np.random.default_rng([args.seed, 5]))
     phase_hybrid(torch, rng)
     phase_closure(torch, index_rng)
-    st, launches, single, pairs, batch, deg_src = phase_main(torch, rng,
-                                                             ROUNDS)
+    st, launches, single, pairs, rounds_batches, deg_src = phase_main(
+        torch, rng, ROUNDS)
+    batch = rounds_batches[0]
     dlaunches, dpairs = phase_dense(torch, st, deg_src, dense_rng)
     phase_profile(torch, main_path_work(st, pairs, batch))
     index, ist, ipairs, ilaunches = phase_index(torch, st, deg_src,
@@ -2880,9 +3276,16 @@ def main(argv=None) -> int:
     dur_launches = phase_durable(torch, st, deg_src,
                                  np.random.default_rng([args.seed, 7]), card,
                                  undurable)
+    sh_launches, sh_work = phase_sharded(
+        torch, st, deg_src, rounds_batches,
+        np.random.default_rng([args.seed, 8]), card)
+    shutil.rmtree(DURABLE_DIR)
+    phase_profile(torch, sh_work)
+    del sh_work
     for key, k in zip(KERNEL_META, kernels):
         k["serving_launches"] = slaunches[key]
         k["durable_launches"] = dur_launches[key]
+        k["sharded_launches"] = sh_launches[key]
     log(f"card: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

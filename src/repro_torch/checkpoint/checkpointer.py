@@ -20,7 +20,8 @@ Trees are flattened with ``torch.utils._pytree``. A flat list of leaves
 writes for it, ``PyTreeDef([*, *, ...])``, so a graph checkpoint's
 manifest equals the JAX package's apart from ``time``. ``restore`` places
 the leaves on the card unless the caller names another device. Sharded
-restores (``shardings=``) wait for ROADMAP.md queue A10.
+restores (``shardings=``, whose only JAX caller is the LM train loop) wait
+for ROADMAP.md queue A12.
 """
 from __future__ import annotations
 
@@ -204,8 +205,8 @@ class Checkpointer:
         manifest)."""
         if shardings is not None:
             raise TypeError("Checkpointer.restore places leaves on one "
-                            "device: sharded restores wait for ROADMAP.md "
-                            "queue A10")
+                            "device: sharded restores (the LM train loop's) "
+                            "wait for ROADMAP.md queue A12")
         dev = resolve_device(device)
         path, manifest = self._manifest(step)
         leaves_t, spec = pytree.tree_flatten(template)

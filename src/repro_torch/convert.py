@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.core.graph import (GraphState, OpBatch, packed_width,
                                     resolve_device)
+from repro_torch.core.partition import ShardedGraphState, shard_state, unshard
 from repro_torch.index.labels import ReachIndex
 
 
@@ -42,9 +43,21 @@ def state_from_numpy(vkey, valive, vver, ecnt, adj_packed_u32,
     return GraphState(*(f.to(dev) for f in fields))
 
 
-def state_to_numpy(state: GraphState) -> tuple:
+def sharded_state_from_numpy(mesh, vkey, valive, vver, ecnt, adj_packed_u32,
+                             adj_in_packed_u32):
+    """A ``core.partition.ShardedGraphState`` on ``mesh`` (a
+    ``core.distributed.GraphMesh``) from the six numpy arrays of a JAX
+    state, so both packages start from the same state."""
+    return shard_state(mesh, state_from_numpy(
+        vkey, valive, vver, ecnt, adj_packed_u32, adj_in_packed_u32,
+        device=mesh.device))
+
+
+def state_to_numpy(state) -> tuple:
     """(vkey, valive, vver, ecnt, adj_packed, adj_in_packed) as numpy; the
-    two word matrices as uint32 views."""
+    two word matrices as uint32 views. A sharded state is gathered."""
+    if isinstance(state, ShardedGraphState):
+        state = unshard(state)
     out = [t.cpu().numpy() for t in state]
     out[4] = out[4].view(np.uint32)
     out[5] = out[5].view(np.uint32)

@@ -8,6 +8,7 @@
   collect_batch, get_paths_session, interleaved_getpath   (snapshot.py)
   EpochRing, EpochRecord, EpochDiff, EpochEvictedError    (epochs.py)
   GraphOracle                                             (oracle.py)
+  ShardedGraphState, shard_state, unshard                 (partition.py)
 """
 from repro_torch.core.graph import (  # noqa: F401
     EMPTY_KEY,
@@ -93,3 +94,8 @@ from repro_torch.core.epochs import (  # noqa: F401
     EpochRing,
 )
 from repro_torch.core.oracle import GraphOracle  # noqa: F401
+from repro_torch.core.partition import (  # noqa: F401
+    ShardedGraphState,
+    shard_state,
+    unshard,
+)

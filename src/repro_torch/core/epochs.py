@@ -43,6 +43,12 @@ where the work runs, because the states live on the card:
   * ``diff`` rebuilds only ``vkey`` at each end, and ``versions_at`` /
     ``epoch_of_versions`` only (ecnt, vver), on the host, as JAX does.
 
+A mesh-sharded state (``core.partition.ShardedGraphState``) is held the
+same way, its version stamps covering every row block: ``push`` diffs it
+row block by row block against the previous state's same rows, with no
+gathered [V, W] copy, and ``state_at`` returns the dense ``GraphState``,
+as the JAX ring does.
+
 Capacity growth is a retention barrier: a ``grow`` changes every row's
 shape, so the ring resets at the grown epoch and earlier epochs report
 ``EpochEvictedError``, the same typed signal an epoch past the bounded
@@ -55,8 +61,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.core.graph import (WORD_BITS, GraphState, pack_bits,
-                                    resolve_device, unpack_bits, wrap_int32)
+from repro_torch.core.distributed import _on
+from repro_torch.core.graph import (WORD_BITS, GraphState,
+                                    pack_transpose_blocks, resolve_device,
+                                    wrap_int32)
 from repro_torch.obs import trace as _trace
 from repro_torch.obs.metrics import global_registry as _obs_registry
 
@@ -66,10 +74,57 @@ _ROW_FIELDS = ("vkey", "valive", "vver", "ecnt", "adj_packed")
 _SCALARS = _ROW_FIELDS[:4]
 
 
-def _stamp(state: GraphState) -> tuple[int, ...]:
-    """The version counters of a state's six tensors: an in-place write to
-    any of them moves its counter."""
-    return tuple(t._version for t in state)
+def _tensors(state) -> tuple:
+    """Every tensor of a dense or sharded state."""
+    return tuple(state) if isinstance(state, GraphState) else state.tensors()
+
+
+def _stamp(state) -> tuple[int, ...]:
+    """The version counters of a state's tensors (for a sharded state every
+    row block and metadata copy): an in-place write to any of them moves
+    its counter."""
+    return tuple(t._version for t in _tensors(state))
+
+
+def _row_blocks(state) -> list:
+    """(first row, int32[R, W] block) of a state's ``adj_packed``, in row
+    order: one block for a dense state, S for a sharded one."""
+    if isinstance(state, GraphState):
+        return [(0, state.adj_packed)]
+    per = state.rows_per_shard
+    return [(s * per, b) for s, b in enumerate(state.adj_packed)]
+
+
+def _rows_of(state, lo: int, hi: int, dev) -> torch.Tensor:
+    """``adj_packed`` rows [lo, hi) of a dense or sharded state on ``dev``:
+    a view when one block holds them all on that device."""
+    pieces = []
+    for b0, blk in _row_blocks(state):
+        a, z = max(lo, b0), min(hi, b0 + blk.shape[0])
+        if a < z:
+            pieces.append(_on(blk[a - b0:z - b0], dev))
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+
+
+def _take_rows(state, rows: torch.Tensor) -> torch.Tensor:
+    """``adj_packed[rows]`` (rows ascending) on the state's device,
+    gathered block by block from a sharded state."""
+    if isinstance(state, GraphState):
+        return state.adj_packed[rows]
+    out = []
+    for b0, blk in _row_blocks(state):
+        sel = rows[(rows >= b0) & (rows < b0 + blk.shape[0])] - b0
+        out.append(_on(blk[_on(sel, blk.device)], state.device))
+    return torch.cat(out)
+
+
+def _dense_fields(state) -> list:
+    """The six fields of the state as dense tensors of their own on its
+    device (a sharded state's row blocks concatenated)."""
+    if isinstance(state, GraphState):
+        return [t.clone() for t in state]
+    d = state.as_dense()
+    return [t.clone() for t in d[:4]] + [d[4], d[5]]
 
 
 class EpochEvictedError(LookupError):
@@ -156,19 +211,6 @@ def _fold(records, words: int) -> tuple[int, np.ndarray]:
     return k, buf
 
 
-def _transpose_blocks(words: torch.Tensor, v: int,
-                      chunk_words: int = 16) -> torch.Tensor:
-    """``pack_transpose(words, v)`` built in column blocks of
-    ``chunk_words`` words, so the transient stays near V * chunk_words *
-    256 bytes instead of the [V, V] unpack (``load`` only)."""
-    out = torch.empty_like(words)
-    for w0 in range(0, words.shape[1], chunk_words):
-        w1 = min(words.shape[1], w0 + chunk_words)
-        block = words[w0 * WORD_BITS:min(v, w1 * WORD_BITS)]
-        out[:, w0:w1] = pack_bits(unpack_bits(block, v).T.contiguous())
-    return out
-
-
 class EpochRing:
     """Bounded retention of published epochs as backward-replayable deltas.
 
@@ -230,13 +272,22 @@ class EpochRing:
             raise ValueError(
                 f"non-consecutive publish: {self._newest} -> {epoch}")
         v, w = state.capacity, state.words
-        changed = (prev.adj_packed != state.adj_packed).any(1)
+        dev = state.device
+        # row block by row block against the previous state's same rows
+        # (a sharded state is never gathered)
+        changed = torch.zeros((v,), dtype=torch.bool, device=dev)
+        for lo, blk in _row_blocks(state):
+            hi = lo + blk.shape[0]
+            diff = (_rows_of(prev, lo, hi, blk.device) != blk).any(1)
+            changed[lo:hi] = _on(diff, dev)
         for name in _SCALARS:
             changed |= getattr(prev, name) != getattr(state, name)
         rows = torch.nonzero(changed).flatten()
         k = rows.numel()
         patch = [(getattr(prev, name)[rows] ^ getattr(state, name)[rows])
-                 .to(torch.int32).flatten() for name in _ROW_FIELDS]
+                 .to(torch.int32).flatten() for name in _SCALARS]
+        patch.append((_take_rows(prev, rows) ^ _take_rows(state, rows))
+                     .flatten())
         host = self._to_host(torch.cat(
             [torch.stack([state.ecnt, state.vver], -1).flatten(),
              rows.to(torch.int32)] + patch))
@@ -308,7 +359,7 @@ class EpochRing:
                 sp.set(depth=depth)
                 _obs_registry().observe("ring.resolve_depth", depth)
             latest = self._newest_state()
-            cur = [t.clone() for t in latest]
+            cur = _dense_fields(latest)
             newer = [rec for rec in self._newer(epoch) if rec.rows.size]
             if not newer:
                 return GraphState(*cur)
@@ -364,8 +415,9 @@ class EpochRing:
         if latest is not None:
             leaves += [self._to_host(getattr(latest, n)).copy()
                        for n in _SCALARS]
-            leaves.append(self._to_host(latest.adj_packed)
-                          .view(np.uint32).copy())
+            leaves.append(self._to_host(_rows_of(
+                latest, 0, latest.capacity, latest.device))
+                .view(np.uint32).copy())
         for rec in self._records:
             leaves += [rec.versions, rec.rows, rec.vkey_xor, rec.valive_xor,
                        rec.vver_xor, rec.ecnt_xor, rec.adj_xor]
@@ -395,7 +447,7 @@ class EpochRing:
                 torch.from_numpy(np.array(va, np.bool_)).to(dev),
                 torch.from_numpy(np.array(vv, np.int32)).to(dev),
                 torch.from_numpy(np.array(ec, np.int32)).to(dev),
-                words, _transpose_blocks(words, cap)))
+                words, pack_transpose_blocks(words, cap)))
         for epoch in meta.get("record_epochs", []):
             versions, rows, vk, va, vv, ec, adj = leaves[i:i + 7]
             i += 7

@@ -112,6 +112,19 @@ def pack_transpose(words: torch.Tensor, v: int) -> torch.Tensor:
     return pack_bits(unpack_bits(words, v).T.contiguous())
 
 
+def pack_transpose_blocks(words: torch.Tensor, v: int,
+                          chunk_words: int = 16) -> torch.Tensor:
+    """``pack_transpose(words, v)`` built in column blocks of
+    ``chunk_words`` words, so the transient stays near V * chunk_words *
+    256 bytes instead of the [V, V] unpack."""
+    out = torch.empty_like(words)
+    for w0 in range(0, words.shape[1], chunk_words):
+        w1 = min(words.shape[1], w0 + chunk_words)
+        block = words[w0 * WORD_BITS:min(v, w1 * WORD_BITS)]
+        out[:, w0:w1] = pack_bits(unpack_bits(block, v).T.contiguous())
+    return out
+
+
 def bit_word(col):
     """Word index of column ``col``."""
     return col // WORD_BITS

@@ -98,6 +98,12 @@ class _SerialPass:
         word = int(self.st.adj_packed[row, col // WORD_BITS])
         return (word & bit_mask(col)) != 0
 
+    def in_sources(self, slot: int) -> np.ndarray:
+        """bool[V] on the host: the rows with an edge into ``slot`` (its
+        in-adjacency row), liveness not applied."""
+        return unpack_bits(self.st.adj_in_packed[slot],
+                           len(self.vkey)).cpu().numpy()
+
     # -- adjacency writes (both mirrors, single words / one row + column) -----
     def set_edge(self, row: int, col: int, present: bool) -> None:
         for adj, r, c in ((self.st.adj_packed, row, col),
@@ -137,8 +143,7 @@ class _SerialPass:
             return R_FALSE
         # every live in-edge source's ecnt moves (liveness read BEFORE the
         # mark, so a self-loop bumps the vertex's own ecnt too)
-        in_src = unpack_bits(self.st.adj_in_packed[tgt], len(self.vkey))
-        in_src = in_src.cpu().numpy() & self.valive
+        in_src = self.in_sources(tgt) & self.valive
         self.valive[tgt] = False
         self.vver[tgt] += 1
         self.ecnt[tgt] += 1
@@ -187,13 +192,15 @@ class _SerialPass:
         return R_FALSE
 
 
-def _serial_masked(st: GraphState, ops: OpBatch, lanes, res: np.ndarray):
+def _serial_masked(st: GraphState, ops: OpBatch, lanes, res: np.ndarray,
+                   serial_pass=_SerialPass):
     """Apply the selected ``lanes`` (ascending) of ``ops`` to ``st`` in
     place, in lane order; unselected lanes keep their ``res`` entry. This
     is both the reference engine (all lanes) and the fast engine's
-    correction pass (the conflicting lanes)."""
+    correction pass (the conflicting lanes). ``serial_pass`` is the pass
+    class (the sharded engine brings its own)."""
     host = np.stack([t.cpu().numpy() for t in ops]).astype(np.int64)
-    sp = _SerialPass(st)
+    sp = serial_pass(st)
     for i in lanes:
         res[i] = sp.apply_one(*(int(x) for x in host[:, i]))
     sp.finish()

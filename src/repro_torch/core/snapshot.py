@@ -20,6 +20,13 @@ Surfaces:
 
 Paths are walked on the host: a session copies ``parent`` and ``found`` to
 the host once, not one sync per path step.
+
+Every surface also takes a mesh-partitioned ``core.partition.
+ShardedGraphState`` (DESIGN.md §8): the traversal is then the sharded
+fused BFS (a single collect runs it at Q = 1, untraced, where JAX runs its
+untraced single-source ``bfs`` on the sharded arrays), and since the
+validation metadata is replicated the Collect is bit-identical to the
+dense one.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import ops as gops
+from repro_torch.core import partition
 from repro_torch.core.bfs import bfs, extract_path, multi_bfs
 from repro_torch.core.graph import (GraphState, OpBatch, find_slot,
                                     find_slots, version_vector)
@@ -55,11 +63,10 @@ class PathResult(NamedTuple):
     # against one pinned epoch
 
 
-def _require_dense(state) -> None:
-    if not isinstance(state, GraphState):
-        raise TypeError(
-            f"collect_batch takes a GraphState, got {type(state).__name__}: "
-            "sharded states wait for ROADMAP.md queue A10")
+def _require_state(state) -> None:
+    if not isinstance(state, (GraphState, partition.ShardedGraphState)):
+        raise TypeError(f"a collect takes a GraphState or a "
+                        f"ShardedGraphState, got {type(state).__name__}")
 
 
 def _touch(touched, slots):
@@ -84,11 +91,16 @@ def _finish(state: GraphState, found, parent, expanded, sk, sl) -> Collect:
 def collect(state: GraphState, k, l, backend: str | None = None) -> Collect:
     """One TreeCollect: locate endpoints, BFS (the push is B3 on the
     kernel backends), snapshot versions."""
+    _require_state(state)
     sk = find_slot(state, int(k)).reshape(1)
     sl = find_slot(state, int(l)).reshape(1)
-    r = bfs(state, sk, sl, backend=backend)
-    c = _finish(state, r.found[None], r.parent[None], r.expanded[None], sk,
-                sl)
+    if isinstance(state, partition.ShardedGraphState):
+        r = partition.traverse(state, sk, sl, backend=backend)
+        c = _finish(state, r.found, r.parent, r.expanded, sk, sl)
+    else:
+        r = bfs(state, sk, sl, backend=backend)
+        c = _finish(state, r.found[None], r.parent[None], r.expanded[None],
+                    sk, sl)
     return Collect(*(x[0] for x in c))
 
 
@@ -154,7 +166,7 @@ def collect_batch(state, ks, ls, backend: str | None = None,
     superstep (the production path; the push is B1 on the kernel
     backends). ``engine="vmap"``: Q single collects, stacked (the
     cross-check reference)."""
-    _require_dense(state)
+    _require_state(state)
     dev = state.device
     ks = torch.as_tensor(np.asarray(ks, np.int32), device=dev)
     ls = torch.as_tensor(np.asarray(ls, np.int32), device=dev)
@@ -166,7 +178,10 @@ def collect_batch(state, ks, ls, backend: str | None = None,
         raise ValueError(f"unknown collect_batch engine {engine!r}")
     sk = find_slots(state, ks)
     sl = find_slots(state, ls)
-    r = multi_bfs(state, sk, sl, backend=backend)
+    traverse = (partition.multi_bfs
+                if isinstance(state, partition.ShardedGraphState)
+                else multi_bfs)
+    r = traverse(state, sk, sl, backend=backend)
     return _finish(state, r.found, r.parent, r.expanded, sk, sl)
 
 

@@ -22,7 +22,13 @@ A stale-at-head index can still serve from the epoch ring (DESIGN.md §13):
 ``index_fresh_at`` finds the newest retained epoch whose version vector
 equals the index's stamp, and ``reach_session(ring=...,
 on_conflict="epoch")`` pins the batch there when that epoch is at or after
-the query's admitted epoch. Sharded states wait for ROADMAP.md queue A10.
+the query's admitted epoch.
+
+A mesh-sharded state (``core.partition``) is served as a dense one: the
+freshness check reads its replicated metadata, ``refresh`` gathers it once
+(``labels._as_dense``), and the BFS fallbacks run the sharded fused BFS
+(``reach_session`` through ``get_paths_session``, ``reach_counts_session``
+through ``partition.multi_bfs`` with parents, as JAX runs it).
 """
 from __future__ import annotations
 
@@ -33,10 +39,11 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.core import partition
 from repro_torch.core.bfs import multi_bfs
 from repro_torch.core.graph import find_slots, version_vector
 from repro_torch.core.snapshot import get_paths_session
-from repro_torch.index.labels import (ReachIndex, _require_dense,
+from repro_torch.index.labels import (ReachIndex, _as_dense,
                                       build_index, coverage_complete, pad8,
                                       rebuild_rows)
 from repro_torch.index.query import query_reach, reach_counts
@@ -57,7 +64,7 @@ def affected_landmarks(index: ReachIndex, state, *,
                        backend: str | None = None):
     """(aff_fwd bool[L], aff_bwd bool[L], dirty bool[V]) as numpy: the
     landmark closures a refresh must re-traverse (module docstring)."""
-    _require_dense(state)
+    state = _as_dense(state)
     dirty = (version_vector(state) != index.versions).any(1)
     lm = index.landmarks.long()
     aff_fwd = (index.fwd & dirty[None, :]).any(1) | dirty[lm]
@@ -80,6 +87,7 @@ def refresh(index: ReachIndex, state, *, backend: str | None = None,
     capacity changed, when a complete index lost completeness, or when more
     than ``full_threshold`` of the closures are affected. The caller swaps
     the returned index in; the old one is not written."""
+    state = _as_dense(state)
     if state.capacity != index.capacity:
         return (build_index(state, index.requested, backend=backend),
                 {"mode": "full", "rebuilt": index.num_landmarks})
@@ -250,7 +258,8 @@ def reach_counts_session(fetch_state, index: ReachIndex | None, keys, *,
     decided (complete cover); otherwise one closure-mode multi-BFS over the
     fetched snapshot (a functional snapshot, so one fetch is consistent)."""
     state = fetch_state()
-    _require_dense(state)
+    if not isinstance(state, partition.ShardedGraphState):
+        state = _as_dense(state)     # a GraphState, or TypeError
     slots = find_slots(state, torch.tensor(list(keys), dtype=torch.int32,
                                            device=state.device))
     if index_fresh(index, state):
@@ -258,6 +267,10 @@ def reach_counts_session(fetch_state, index: ReachIndex | None, keys, *,
             index, slots)
         if bool(decided.all()):
             return counts.cpu().numpy(), True
-    res = multi_bfs(state, slots, torch.full_like(slots, -1),
-                    backend=backend, parents=False)
+    if isinstance(state, partition.ShardedGraphState):
+        res = partition.multi_bfs(state, slots, torch.full_like(slots, -1),
+                                  backend=backend)
+    else:   # closure-only: counts never need the BFS tree
+        res = multi_bfs(state, slots, torch.full_like(slots, -1),
+                        backend=backend, parents=False)
     return (res.dist >= 0).sum(1, dtype=torch.int32).cpu().numpy(), False

@@ -26,6 +26,9 @@ unreachability only when the landmark set is ``complete`` (every alive
 vertex is a landmark); otherwise the pair is undecided and the session
 layer (``freshness.py``) falls back to the BFS session.
 
+A mesh-sharded state (``core.partition``) is gathered through ``unshard``
+first, as JAX's ``_as_dense`` does.
+
 The index is stamped with the full (ecnt, vver) version vector of the state
 it was built from; ``freshness.index_fresh`` compares it with the live
 metadata like the second collect of a double collect.
@@ -79,11 +82,19 @@ class ReachIndex(NamedTuple):
         return unpack_bits(self.in_label, self.num_landmarks)
 
 
-def _require_dense(state) -> None:
+def _as_dense(state) -> GraphState:
+    """The dense form of a dense or mesh-sharded state: an index build
+    gathers (the backward closure needs the transposed adjacency, and a
+    transpose of a row-sharded matrix is a full exchange anyway, DESIGN.md
+    §9)."""
+    from repro_torch.core.partition import ShardedGraphState, unshard
+
+    if isinstance(state, ShardedGraphState):
+        return unshard(state)
     if not isinstance(state, GraphState):
-        raise TypeError(
-            f"the index takes a GraphState, got {type(state).__name__}: "
-            "sharded states wait for ROADMAP.md queue A10")
+        raise TypeError(f"the index takes a GraphState or a "
+                        f"ShardedGraphState, got {type(state).__name__}")
+    return state
 
 
 def _host(x) -> np.ndarray:
@@ -122,7 +133,7 @@ def live_degrees(state: GraphState) -> torch.Tensor:
     popcount of the ``traversable_packed`` rows of one mirror (equal to the
     JAX package's row and column sums of the alive-masked dense matrix by
     the transpose invariant), in row chunks: no [V, V] unpack."""
-    _require_dense(state)
+    state = _as_dense(state)
     alive = state.valive
     aw = pack_bits(alive)
     deg = torch.zeros((state.capacity,), dtype=torch.int64,
@@ -199,7 +210,7 @@ def build_index(state: GraphState, num_landmarks: int | None = None, *,
     complete and decides every pair. A smaller budget trades coverage for
     build cost; undecided pairs fall back to the BFS session.
     ``landmark_slots`` pins an explicit slot list (refresh and tests)."""
-    _require_dense(state)
+    state = _as_dense(state)
     v = state.capacity
     dev = state.device
     if landmark_slots is not None:
@@ -236,7 +247,7 @@ def rebuild_rows(index: ReachIndex, state: GraphState, aff_fwd, aff_bwd,
     landmark list, and so the pruning order, stays fixed, so the result is
     bit-identical to ``build_index(state, landmark_slots=index.landmarks)``.
     The old index's tensors are not written (racing readers keep it)."""
-    _require_dense(state)
+    state = _as_dense(state)
     lm = index.landmarks
 
     def recompute(mask, mat, g):

@@ -183,6 +183,8 @@ def _on_cuda(x) -> bool:
         return x.is_cuda
     if isinstance(x, (tuple, list)):
         return any(_on_cuda(y) for y in x)
+    if callable(getattr(x, "tensors", None)):   # a sharded graph state
+        return _on_cuda(x.tensors())
     return False
 
 

@@ -49,8 +49,10 @@ published, ``ckpt-mid-write`` a checkpoint written but never renamed,
 first two only raise ``SimulatedCrash``, as the JAX pool does.
 
 Device: batches are built on the state's device and each round's results
-cross to the host once. Sharded states (``mesh=``) wait for ROADMAP.md
-queue A10 and raise ``TypeError``.
+cross to the host once. A mesh-sharded state (``mesh=``, or a
+``ShardedGraphState`` passed in) is applied through
+``partition.apply_ops_fast`` and grown through ``partition.grow``, as the
+JAX pool does; the ring holds it by reference like a dense state.
 """
 from __future__ import annotations
 
@@ -60,6 +62,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from repro_torch.core import partition
+from repro_torch.core.distributed import GraphMesh
 from repro_torch.core.epochs import EpochEvictedError, EpochRing
 from repro_torch.core.graph import (OP_ADD_E, OP_ADD_V, OP_CON_E, OP_CON_V,
                                     OP_REM_E, OP_REM_V, R_TABLE_FULL, grow,
@@ -209,9 +213,16 @@ class IngestPool:
                  clock=time.monotonic, retain_epochs: int = 64,
                  registry: MetricsRegistry | None = None,
                  wal=None, ckpt=None, ckpt_every: int = 0):
-        if mesh is not None:
-            raise TypeError("IngestPool takes a GraphState on one device: "
-                            "sharded states wait for ROADMAP.md queue A10")
+        if mesh is not None and not isinstance(mesh, GraphMesh):
+            raise TypeError(f"IngestPool(mesh=) takes a GraphMesh, got "
+                            f"{type(mesh).__name__}")
+        self.mesh = mesh if mesh is not None else getattr(state, "mesh", None)
+        if self.mesh is not None and not isinstance(
+                state, partition.ShardedGraphState):
+            raise TypeError(f"IngestPool(mesh=) takes a ShardedGraphState, "
+                            f"got {type(state).__name__}")
+        if self.mesh is not None and self.mesh != state.mesh:
+            raise ValueError(f"state placed on {state.mesh}, not {self.mesh}")
         self.auto_grow = auto_grow
         self.max_inflight = int(max_inflight)
         self.max_coalesce_lanes = int(max_coalesce_lanes)
@@ -386,13 +397,15 @@ class IngestPool:
                 self._queue.remove(t)
 
     def _apply_with_grow(self, base, batch):
-        state, res = apply_ops_fast(base, batch)
+        apply, grow_fn = ((partition.apply_ops_fast, partition.grow)
+                          if self.mesh is not None else (apply_ops_fast, grow))
+        state, res = apply(base, batch)
         res = res.cpu().numpy()
         while self.auto_grow and (res == R_TABLE_FULL).any():
             # grow the PRE-round state and replay the WHOLE fused batch:
             # one clean linearization on the grown table
-            base = grow(base, 2 * base.capacity)
-            state, res = apply_ops_fast(base, batch)
+            base = grow_fn(base, 2 * base.capacity)
+            state, res = apply(base, batch)
             res = res.cpu().numpy()
             with self._mutex:
                 self.stats.grow_events += 1

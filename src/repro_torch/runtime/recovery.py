@@ -27,8 +27,10 @@ the ring holds is written in place.
 
 ``resume_pool`` turns a ``Recovered`` into a live ``IngestPool`` whose
 published epoch, linearization log and epoch ring continue exactly where
-the dead process stopped. Sharded states (``mesh=``) wait for ROADMAP.md
-queue A10.
+the dead process stopped. With ``mesh=`` the recovered state is placed
+on that mesh (``partition.shard_state``) before the replay, which then runs
+``partition.apply_ops_fast`` and ``partition.grow``, as in JAX; a
+checkpoint always holds the gathered state.
 """
 from __future__ import annotations
 
@@ -39,6 +41,8 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import Checkpointer
+from repro_torch.core import partition
+from repro_torch.core.distributed import GraphMesh
 from repro_torch.core.epochs import EpochRing
 from repro_torch.core.graph import (R_TABLE_FULL, GraphState, grow,
                                     make_graph, make_op_batch,
@@ -112,6 +116,8 @@ class GraphCheckpointer:
 
     def _leaves_manifest(self, *, epoch, state, ring, linearization,
                          epoch_log, next_batch_id, index_stamp):
+        if isinstance(state, partition.ShardedGraphState):
+            state = state.as_dense()
         leaves = [_host_leaf(state, f) for f in _STATE_FIELDS]
         ring_leaves, ring_meta = ring.dump()
         extra = {
@@ -190,16 +196,18 @@ class GraphCheckpointer:
         return self._load(step, resolve_device(device), {})
 
 
-def _replay_apply(base, batch, *, auto_grow):
+def _replay_apply(base, batch, *, mesh, auto_grow):
     """The pool's fused-apply-with-grow discipline, replicated exactly so
     replayed epochs are bit-identical to the ones the dead pool published;
     returns (state, host results, grows)."""
+    apply, grow_fn = ((partition.apply_ops_fast, partition.grow)
+                      if mesh is not None else (apply_ops_fast, grow))
     grows = 0
-    state, res = apply_ops_fast(base, batch)
+    state, res = apply(base, batch)
     res = res.cpu().numpy()
     while auto_grow and (res == R_TABLE_FULL).any():
-        base = grow(base, 2 * base.capacity)
-        state, res = apply_ops_fast(base, batch)
+        base = grow_fn(base, 2 * base.capacity)
+        state, res = apply(base, batch)
         res = res.cpu().numpy()
         grows += 1
     return state, res, grows
@@ -211,16 +219,17 @@ def recover(ckpt: GraphCheckpointer | str | None,
             verify_results: bool = True, device=None) -> Recovered:
     """Latest checkpoint + WAL replay -> the pre-crash published prefix, on
     the card unless ``device`` names another (it raises when CUDA is absent
-    and no device is named: never a quiet CPU fallback).
+    and no device is named: never a quiet CPU fallback). With ``mesh=`` the
+    state lands on the mesh, the ring on its first device.
 
     ``ckpt``/``wal`` accept live objects or paths (or None: recover from
     the other alone; both None yields a fresh empty graph). ``capacity``
     only seats the fresh-graph case: a checkpoint carries its own.
     """
-    if mesh is not None:
-        raise TypeError("recover works on a GraphState on one device: "
-                        "sharded states wait for ROADMAP.md queue A10")
-    dev = resolve_device(device)
+    if mesh is not None and not isinstance(mesh, GraphMesh):
+        raise TypeError(f"recover(mesh=) takes a GraphMesh, got "
+                        f"{type(mesh).__name__}")
+    dev = mesh.device if mesh is not None else resolve_device(device)
     t0 = time.perf_counter()
     if isinstance(ckpt, str):
         ckpt = GraphCheckpointer(ckpt)
@@ -247,6 +256,8 @@ def recover(ckpt: GraphCheckpointer | str | None,
             out.epoch_log = {0: 0}
             out.ring = EpochRing(retain_epochs)
             out.ring.reset(0, state)
+        if mesh is not None:
+            state = partition.shard_state(mesh, state)
 
         # 2) idempotent WAL replay of every epoch past the checkpoint
         t_replay = time.perf_counter()
@@ -260,7 +271,7 @@ def recover(ckpt: GraphCheckpointer | str | None,
                         f"WAL gap: have epoch {out.epoch}, next record is "
                         f"epoch {rec.epoch}")
                 batch = make_op_batch(rec.ops, lanes=rec.pad, device=dev)
-                state, res, _ = _replay_apply(state, batch,
+                state, res, _ = _replay_apply(state, batch, mesh=mesh,
                                               auto_grow=auto_grow)
                 if verify_results and rec.results:
                     got = [int(x) for x in res[:rec.lanes]]

@@ -20,15 +20,22 @@ server's device, carrying the resolved tickets and the index stamp
 forward. Without a WAL it only un-pins, as the JAX server does.
 
 The server creates its state on the card unless ``device`` names another.
-Not ported yet: ``mesh=`` (ROADMAP.md queue A10) and the LM ``serve()``
-loop (queue A12). ``ServeStats`` is ported so that its metric names exist.
+With ``mesh=`` (a ``core.distributed.GraphMesh``) the state is a
+``ShardedGraphState`` on that mesh (DESIGN.md §8): batches go through
+``partition.apply_ops_fast``, sessions traverse with the sharded BFS, and
+``get_path`` is a Q = 1 ``get_paths``, as in JAX. Not ported yet: the LM
+``serve()`` loop (ROADMAP.md queue A12). ``ServeStats`` is ported so that
+its metric names exist.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
+from repro_torch.core import partition
+from repro_torch.core.distributed import GraphMesh
 from repro_torch.core.epochs import EpochEvictedError
 from repro_torch.core.graph import (R_RECOVERING, R_TABLE_FULL, grow,
                                     make_graph, make_op_batch)
@@ -137,9 +144,10 @@ class GraphCoServer:
                  retain_epochs: int = 64, wal_dir: str | None = None,
                  ckpt_every: int = 0, heartbeat=None, failure_policy=None,
                  device=None):
-        if mesh is not None:
-            raise TypeError("GraphCoServer serves one device: sharded "
-                            "states wait for ROADMAP.md queue A10")
+        if mesh is not None and not isinstance(mesh, GraphMesh):
+            raise TypeError(f"GraphCoServer(mesh=) takes a GraphMesh, got "
+                            f"{type(mesh).__name__}")
+        self.mesh = mesh
         self.auto_grow = auto_grow
         self.query_engine = query_engine
         self.grow_events = 0
@@ -166,7 +174,11 @@ class GraphCoServer:
         self._pinned = None            # (epoch, state) while degraded
         self._capacity = int(capacity)   # seats a recovery with no checkpoint
         self._wal_dir = wal_dir
-        self._state = make_graph(capacity, device=device)
+        if mesh is not None:
+            self._state = partition.shard_state(
+                mesh, make_graph(capacity, device=mesh.device))
+        else:
+            self._state = make_graph(capacity, device=device)
         self.pool = None
         if ingest:
             def bump_grow():
@@ -177,7 +189,7 @@ class GraphCoServer:
                 wal = WriteAheadLog(f"{wal_dir}/wal.log")
                 ckpt = GraphCheckpointer(f"{wal_dir}/ckpt")
             self.pool = IngestPool(
-                self._state, auto_grow=auto_grow, max_inflight=max_inflight,
+                self._state, mesh=mesh, auto_grow=auto_grow, max_inflight=max_inflight,
                 max_coalesce_lanes=max_coalesce_lanes, fault=fault,
                 on_grow=bump_grow, retain_epochs=retain_epochs, wal=wal,
                 ckpt=ckpt, ckpt_every=ckpt_every)
@@ -203,6 +215,16 @@ class GraphCoServer:
                 "mutate through submit()/submit_client()")
         self._state = value
 
+    def _apply(self, state, batch):
+        if self.mesh is not None:
+            return partition.apply_ops_fast(state, batch)
+        return apply_ops_fast(state, batch)
+
+    def _grow(self, state, new_capacity: int):
+        if self.mesh is not None:
+            return partition.grow(state, new_capacity)
+        return grow(state, new_capacity)
+
     def submit(self, ops: list) -> np.ndarray:
         if self.degraded:
             # typed rejection: every lane answers R_RECOVERING
@@ -217,14 +239,14 @@ class GraphCoServer:
             return np.asarray(ticket.results)
         base = self.state                    # pre-batch snapshot (functional)
         batch = make_op_batch(ops, device=base.device)
-        state, res = apply_ops_fast(base, batch)
+        state, res = self._apply(base, batch)
         res = res.cpu().numpy()
         while self.auto_grow and (res == R_TABLE_FULL).any():
             # discard the starved application, grow the PRE-batch state and
             # replay the whole batch: one clean lane-order linearization
-            base = grow(base, 2 * state.capacity)
+            base = self._grow(base, 2 * state.capacity)
             self.grow_events += 1
-            state, res = apply_ops_fast(base, batch)
+            state, res = self._apply(base, batch)
             res = res.cpu().numpy()
         self.state = state
         return res
@@ -300,11 +322,11 @@ class GraphCoServer:
             old.wal.close()
             wal = WriteAheadLog(f"{self._wal_dir}/wal.log")
             rec = recover(old.ckpt, wal, capacity=self._capacity,
-                          auto_grow=old.auto_grow,
+                          mesh=self.mesh, auto_grow=old.auto_grow,
                           retain_epochs=old.ring.retain,
                           device=self._state.device)
             self.pool = resume_pool(
-                rec, auto_grow=old.auto_grow, max_inflight=old.max_inflight,
+                rec, mesh=self.mesh, auto_grow=old.auto_grow, max_inflight=old.max_inflight,
                 max_coalesce_lanes=old.max_coalesce_lanes, fault=old.fault,
                 on_grow=old.on_grow, retain_epochs=old.ring.retain, wal=wal,
                 ckpt=old.ckpt, ckpt_every=old.ckpt_every)
@@ -345,6 +367,20 @@ class GraphCoServer:
             self.epoch_resolved += 1
 
     def get_path(self, k: int, l: int, max_rounds: int = 64) -> PathResult:
+        if self.mesh is not None:
+            # the mesh path: a Q = 1 batch session (it counts its own
+            # degraded read and starvation), as in JAX
+            out, rounds = self.get_paths([(k, l)], max_rounds=max_rounds)
+            found, keys = out[0]
+            pad = np.full((self.state.capacity,), -1, np.int32)
+            pad[:len(keys)] = keys
+            dev = self.state.device
+            return PathResult(
+                torch.tensor(found, device=dev),
+                torch.tensor(len(keys), dtype=torch.int32, device=dev),
+                torch.from_numpy(pad).to(dev),
+                torch.tensor(rounds, dtype=torch.int32, device=dev),
+                torch.tensor(False, device=dev))
         if self.degraded:
             self.degraded_reads += 1
         pr = get_path_session(lambda: self.state, k, l,

@@ -32,7 +32,9 @@ Layers:
 
 The JAX module's hypothesis strategy factories, ``shrink_schedule``,
 ``Schedule.pretty`` and ``run_and_check`` have no caller in the port yet
-(ROADMAP.md queue A11). Sharded states (``mesh=``) wait for queue A10.
+(ROADMAP.md queue A11). With ``mesh=`` the pool runs a mesh-sharded state
+(``core.partition``) and recovery lands on the same mesh; every check reads
+the gathered state, as the JAX harness does.
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from repro_torch.convert import state_to_numpy
+from repro_torch.core import partition
 from repro_torch.core.graph import (OP_ADD_E, OP_ADD_V, OP_CON_E, OP_CON_V,
                                     OP_REM_E, OP_REM_V, R_TABLE_FULL,
                                     GraphState, grow, make_graph,
@@ -235,14 +238,18 @@ class Trace:
     reads: list = field(default_factory=list)
     durable_dir: str | None = None   # WAL + checkpoint root (None = undurable)
     crash: CrashInfo | None = None   # set when a durability stage killed the run
+    mesh: object = None    # the GraphMesh of a sharded pool (None = dense)
 
     @property
     def linearization(self):
         return self.pool.linearization
 
 
-def host_fields(state: GraphState) -> dict:
-    """field -> host array of a state, the word matrices as uint32."""
+def host_fields(state) -> dict:
+    """field -> host array of a dense or sharded state (gathered), the
+    word matrices as uint32."""
+    if isinstance(state, partition.ShardedGraphState):
+        state = partition.unshard(state)
     return dict(zip(GraphState._fields, state_to_numpy(state)))
 
 
@@ -288,20 +295,22 @@ def run_schedule(schedule: Schedule, *, capacity=32, mesh=None, fault=None,
     ``crash`` set to the published prefix snapshot.
     """
     if mesh is not None:
-        raise TypeError("run_schedule drives a GraphState on one device: "
-                        "sharded states wait for ROADMAP.md queue A10")
-    state = make_graph(capacity, device=device)
+        state = partition.shard_state(
+            mesh, make_graph(capacity, device=mesh.device))
+    else:
+        state = make_graph(capacity, device=device)
     wal = ckpt = None
     if durable_dir is not None:
         wal = WriteAheadLog(os.path.join(durable_dir, "wal.log"))
         ckpt = GraphCheckpointer(os.path.join(durable_dir, "ckpt"))
-    pool = IngestPool(state, auto_grow=auto_grow, max_inflight=max_inflight,
+    pool = IngestPool(state, mesh=mesh, auto_grow=auto_grow,
+                      max_inflight=max_inflight,
                       max_coalesce_lanes=max_coalesce_lanes,
                       pad_lanes=pad_lanes, fault=fault,
                       retain_epochs=retain_epochs, wal=wal, ckpt=ckpt,
                       ckpt_every=ckpt_every)
     trace = Trace(schedule, pool, capacity, state.device,
-                  durable_dir=durable_dir)
+                  durable_dir=durable_dir, mesh=mesh)
     step_index = 0
     try:
         for step_index, step in enumerate(schedule.steps):
@@ -518,7 +527,7 @@ def recover_trace(trace: Trace):
     wal = WriteAheadLog(os.path.join(trace.durable_dir, "wal.log"))
     ckpt = GraphCheckpointer(os.path.join(trace.durable_dir, "ckpt"))
     try:
-        return recover(ckpt, wal, capacity=trace.capacity,
+        return recover(ckpt, wal, capacity=trace.capacity, mesh=trace.mesh,
                        auto_grow=trace.pool.auto_grow,
                        retain_epochs=trace.pool.ring.retain,
                        device=trace.device)

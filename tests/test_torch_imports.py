@@ -33,7 +33,9 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     names = {str(f.relative_to(PORT)) for f in files[:-1]}
     assert {"runtime/wal.py", "runtime/recovery.py",
             "checkpoint/checkpointer.py", "testing/schedules.py",
-            "launch/durable_serve.py"} <= names
+            "launch/durable_serve.py", "core/partition.py",
+            "core/distributed.py", "parallel/sharding.py",
+            "parallel/collectives.py"} <= names
     for f in files:
         bad = _imported_roots(f) & set(FORBIDDEN)
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
@@ -54,6 +56,9 @@ def test_importing_the_port_loads_no_jax_module():
         "import repro_torch.runtime.recovery\n"
         "import repro_torch.testing.schedules\n"
         "import repro_torch.launch.durable_serve\n"
+        "import repro_torch.core.partition, repro_torch.core.distributed\n"
+        "import repro_torch.parallel.sharding\n"
+        "import repro_torch.parallel.collectives\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n")

@@ -442,5 +442,33 @@ def test_unported_paths_raise(graph):
     res = TI.reach_session(lambda: t, ti, [(0, 1)], ring=object())
     assert res.from_index + res.fellback == 1 and not res.stale
     assert res.pinned_epoch is None
-    with pytest.raises(TypeError, match="A10"):
+    # a mesh-sharded state (7 CPU row blocks of 10 rows: blocks that split
+    # packed words) builds, refreshes and serves as JAX's sharded state
+    # does on its mesh; a non-state object raises TypeError
+    from repro.core import partition as jpart
+    from repro.core.distributed import make_graph_mesh as jax_mesh
+    from repro_torch.core import partition as tpart
+    from repro_torch.core.distributed import make_graph_mesh
+
+    g, _ = graph
+    js = jpart.shard_state(jax_mesh(), g)
+    ts = tpart.shard_state(make_graph_mesh(["cpu"], shards=7), t)
+    ji, ti = JI.build_index(js, 3), TI.build_index(ts, 3)
+    _index_equal(ji, ti, "sharded build")
+    g2 = _apply(g, MIXED)
+    js2 = jpart.shard_state(jax_mesh(), g2)
+    ts2 = tpart.shard_state(ts.mesh, _port(g2))
+    pairs = [(a, b) for a in (0, 5, 31, 63) for b in (2, 40, 65)]
+    _session_equal(JI.reach_session(lambda: js2, ji, pairs),
+                   TI.reach_session(lambda: ts2, ti, pairs), "sharded stale")
+    jr, jinfo = JI.refresh(ji, js2)
+    tr, tinfo = TI.refresh(ti, ts2)
+    assert tinfo == jinfo
+    _index_equal(jr, tr, "sharded refresh")
+    jc, jserved = JI.reach_counts_session(lambda: js2, ji, [0, 5, 31, 99])
+    tc, tserved = TI.reach_counts_session(lambda: ts2, ti, [0, 5, 31, 99])
+    assert tserved == jserved is False
+    np.testing.assert_array_equal(tc, np.asarray(jc))
+    with pytest.raises(TypeError) as err:
         TI.build_index(object())
+    assert "A10" not in str(err.value)

@@ -10,7 +10,8 @@ capacity 8, and exclusive RemoveVertex batches. Compared: every ticket
 (status, results, epoch, retries), the linearization, ``epoch_log``, the
 reads, the stats apart from the ``wait*_s`` wall times, the ring window,
 the crash and the final six arrays. Also: 4 threads submitting at once,
-checked by serial replay through the port's oracle; and ``mesh=`` raises."""
+checked by serial replay through the port's oracle; and ``mesh=``: a
+schedule on 8 CPU row blocks against JAX's on its mesh."""
 import random
 import threading
 
@@ -18,11 +19,14 @@ import numpy as np
 import pytest
 
 import repro_torch.core as T
+from repro.core import partition as jpart
+from repro.core.distributed import make_graph_mesh as jax_mesh
 from repro.runtime.fault import FaultInjector as JFault
 from repro.testing.schedules import (enumerate_interleavings,
                                      gen_client_programs, random_schedule)
 from repro.testing.schedules import run_schedule as jrun
 from repro_torch.convert import state_to_numpy
+from repro_torch.core.distributed import make_graph_mesh
 from repro_torch.core.graph import to_networkx_like
 from repro_torch.runtime.fault import FaultInjector as TFault
 from repro_torch.runtime.ingest import (IngestPool, _next_pow2,
@@ -55,6 +59,11 @@ def _crash(trace):
                                              trace.crash.epoch_attempted)
 
 
+def _jdense(state):
+    """A JAX state gathered when it is mesh-sharded."""
+    return jpart.unshard(state) if hasattr(state, "mesh") else state
+
+
 def _assert_same_run(jtrace, ttrace):
     jpool, tpool = jtrace.pool, ttrace.pool
     assert _tickets(tpool) == _tickets(jpool)
@@ -67,14 +76,15 @@ def _assert_same_run(jtrace, ttrace):
     assert _crash(ttrace) == _crash(jtrace)
     for what, t, j in (("head", tpool._head, jpool._head),
                        ("snapshot", tpool.snapshot(), jpool.snapshot())):
-        for f, a, b in zip(T.GraphState._fields, state_to_numpy(t), j):
+        for f, a, b in zip(T.GraphState._fields, state_to_numpy(t),
+                           _jdense(j)):
             np.testing.assert_array_equal(a, np.asarray(b),
                                           err_msg=f"{what}: {f}")
     lo, hi = jpool.epoch_window()
     for e in (lo, (lo + hi) // 2):
         for f, a, b in zip(T.GraphState._fields,
                            state_to_numpy(tpool.state_at(e)),
-                           jpool.state_at(e)):
+                           _jdense(jpool.state_at(e))):
             np.testing.assert_array_equal(a, np.asarray(b),
                                           err_msg=f"state_at({e}): {f}")
 
@@ -235,5 +245,21 @@ def test_four_threads_submit_at_once_and_replay_serially():
 
 @pytest.mark.parametrize("kw", [{"mesh": object()}], ids=["mesh"])
 def test_durability_and_mesh_wait_for_later_slices(kw):
-    with pytest.raises(TypeError, match="A10"):
+    # ``mesh=`` is ported: a schedule with RemoveVertex, epoch and
+    # time-travel reads and a grow runs on 8 CPU row blocks (8 -> 16
+    # slots: one row a block, then two) as JAX's does on its mesh; a mesh
+    # that is no GraphMesh raises TypeError
+    rng = random.Random(5)
+    programs = gen_client_programs(rng, clients=3, batches_per_client=4,
+                                   conflict_rate=0.5, remv_rate=0.2)
+    schedule = random_schedule(rng, programs, epoch_read_rate=0.25,
+                               tt_read_rate=0.3)
+    jtrace = jrun(schedule, capacity=8, retain_epochs=6, mesh=jax_mesh())
+    ttrace = trun(schedule, capacity=8, retain_epochs=6,
+                  mesh=make_graph_mesh(["cpu"], shards=8))
+    _assert_same_run(jtrace, ttrace)
+    assert isinstance(ttrace.pool._head, T.ShardedGraphState)
+    assert ttrace.pool.stats.grow_events == 1
+    with pytest.raises(TypeError) as err:
         IngestPool(T.make_graph(8, device="cpu"), **kw)
+    assert "A10" not in str(err.value)

@@ -533,7 +533,23 @@ def test_recover_and_restore_default_to_the_card(tmp_path):
                  lambda: trun(_schedule(3), capacity=8)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
-    with pytest.raises(TypeError, match="A10"):
+    # recover(mesh=) is ported: the directory recovers onto 8 CPU row
+    # blocks of 2 rows as JAX's recover(mesh=) does onto its mesh (six
+    # fields, linearization, ring dump); a mesh that is no GraphMesh
+    # raises TypeError
+    from repro.core import partition as jpart
+    from repro.core.distributed import make_graph_mesh as jax_mesh
+    from repro_torch.core.distributed import make_graph_mesh
+
+    d = tmp_path / "d"
+    trec = recover(gck, str(d / "wal.log"),
+                   mesh=make_graph_mesh(["cpu"], shards=8))
+    jrec = jrecover(str(d / "ckpt"), str(d / "wal.log"), mesh=jax_mesh())
+    jrec.state = jpart.unshard(jrec.state)
+    _assert_same_recovered(trec, jrec)
+    assert trec.state.num_shards == 8 and trec.replayed_rounds > 0
+    with pytest.raises(TypeError) as err:
         recover(None, None, mesh=object(), **CPU)
+    assert "A10" not in str(err.value)
     assert recover(gck, None, **CPU).epoch == gck.latest_step() > 0
     assert tr.crash is None

@@ -7,8 +7,8 @@ degraded mode through ``enter_degraded``, ``handle_crash``,
 ``check_health`` and the restart budget) gives equal answers, and
 ``get_metrics`` has the same keys and values apart from wall seconds.
 Also ``reach_session(ring=...)`` pinned at a retained epoch and
-``index_fresh_at``, the part that waits for a later slice (``mesh=``),
-the default device and the import boundary."""
+``index_fresh_at``, the same call sequence with ``mesh=`` (8 CPU row
+blocks against JAX's mesh), the default device and the import boundary."""
 import dataclasses
 import os
 import subprocess
@@ -23,11 +23,13 @@ import repro.core as J
 import repro.index.freshness as JF
 import repro_torch.core as T
 import repro_torch.index.freshness as TF
+from repro.core.distributed import make_graph_mesh as jax_mesh
 from repro.obs import trace as jtrace
 from repro.obs.metrics import GLOBAL as JGLOBAL
 from repro.runtime import fault as jfault
 from repro.runtime.ingest import IngestPool as JPool
 from repro.runtime.serve_loop import GraphCoServer as JServer
+from repro_torch.core.distributed import make_graph_mesh
 from repro_torch.obs import trace as ttrace
 from repro_torch.obs.metrics import GLOBAL as TGLOBAL
 from repro_torch.runtime import fault as tfault
@@ -242,8 +244,35 @@ def test_ring_validation_span_and_metric_are_kept():
 
 @pytest.mark.parametrize("kw", [{"mesh": object()}], ids=["mesh"])
 def test_server_parts_that_wait_for_later_slices_raise(kw):
-    with pytest.raises(TypeError, match="A10"):
+    # ``mesh=`` is ported: the whole call sequence on 8 CPU row blocks (6
+    # rows each; the bare server's 1, then 2 after its grow) answers as
+    # JAX's server on its mesh, with the same metrics; the sharded BFS
+    # moves the exchange bytes by JAX's formula, which counts every shard
+    # (8 here, 1 on JAX's mesh). A mesh that is no GraphMesh raises.
+    runs = []
+    for M, Server, fault, tr, reg, mesh in (
+            (J, JServer, jfault, jtrace, JGLOBAL, jax_mesh()),
+            (T, TServer, tfault, ttrace, TGLOBAL,
+             make_graph_mesh(["cpu"], shards=8))):
+        before = reg.snapshot()
+        with tr.capture():
+            answers, s = _serve(M, Server, fault, mesh=mesh)
+        runs.append((answers, s.get_metrics(),
+                     _global_delta(reg.snapshot(), before, reg), s))
+    (ja, jm, jg, _), (ta, tm, tg, ts) = runs
+    for i, (a, b) in enumerate(zip(ta, ja)):
+        assert a == b, f"answer {i}: port {a} != jax {b}"
+    assert len(ta) == len(ja)
+    assert isinstance(ts.state, T.ShardedGraphState)
+    local = [k for k in jm if k not in TGLOBAL.names() and k not in WALL]
+    assert {k: tm[k] for k in local} == {k: jm[k] for k in local}
+    xb = "bfs.exchange_bytes"
+    assert tg[xb] == 8 * jg[xb] > 0
+    assert {k: v for k, v in tg.items() if k != xb} == \
+        {k: v for k, v in jg.items() if k != xb}
+    with pytest.raises(TypeError) as err:
         TServer(capacity=8, ingest=True, device="cpu", **kw)
+    assert "A10" not in str(err.value)
 
 
 def test_server_pool_and_ring_default_to_the_card():

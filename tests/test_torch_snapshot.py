@@ -100,8 +100,21 @@ def test_collect_batch_matches_jax(engine):
     got = T.collect_batch(t, ks, ls, engine=engine)
     _collects_equal(want, got, engine)
     assert bool(T.compare_collect_batches(got, T.collect_batch(t, ks, ls)))
-    with pytest.raises(TypeError, match="A10"):
+    # on a mesh-sharded state (8 CPU row blocks of 12 rows) the Collect
+    # equals JAX's on its sharded state; a bare tuple raises TypeError
+    from repro.core import partition as jpart
+    from repro.core.distributed import make_graph_mesh as jax_mesh
+    from repro_torch.core.distributed import make_graph_mesh
+
+    js = jpart.shard_state(jax_mesh(), g)
+    ts = T.shard_state(make_graph_mesh(["cpu"], shards=8), t)
+    want = J.collect_batch(js, jnp.asarray(ks), jnp.asarray(ls),
+                           engine=engine)
+    _collects_equal(want, T.collect_batch(ts, ks, ls, engine=engine),
+                    f"sharded {engine}")
+    with pytest.raises(TypeError) as err:
         T.collect_batch(tuple(t), ks, ls)
+    assert "A10" not in str(err.value)
 
 
 def _mutating_fetch(M, g, batches, **dev):
