@@ -205,6 +205,29 @@ Phases (each prints lines; the last line is the JSON result):
      and exchange bytes, launches a superstep, peak memory and the phase's
      wall; B1, B2 and B6 must launch on the sharded path
      (``sharded_launches`` in the kernels line)
+ 11. the LM co-serving path: qwen2-1.5b at its published width (28
+     layers, d 1,536, 12 heads / 2 KV heads of 128, d_ff 8,960, vocab
+     151,936, bf16, tied embeddings; 1.54 B params drawn on the card from a
+     seeded ``torch.Generator``); (a) a prefill of 8 prompts of 512 tokens
+     and 16 teacher-forced decode steps equal one ``forward`` of 528 tokens
+     at every decoded position within LM_TOL (bf16), the argmax equal
+     wherever the forward's top-2 margin exceeds twice it, every logit
+     finite, and greedy decoding (64 tokens, cache 1,024) gives the same
+     tokens in two runs; (b) ``serve()`` with that model on 8 x 512
+     prompts, 64 new tokens, cache 1,024, co-serving phase 8's SCALE-12
+     ``GraphCoServer(ingest=True, index=True)`` with ``clients=`` (4
+     tenants' 64-lane equal-mix batches a step) and a ``query_stream`` (64
+     pairs every 4th step, a lone pair on the others): the ``ServeStats``
+     counters add up, the tokens equal the bare loop's, a ``get_reach``
+     batch after it equals scipy, and B1, B2 and B4 launched inside
+     ``serve()`` (``lm_serve_launches`` in the kernels line); (c) ``python
+     -m repro_torch.launch.serve --no-smoke --ingest --batch 8 --prompt-len
+     512 --new 64 --cache-len 1024`` exits 0 with its decode, ingest, ring
+     tour and stale-index lines; (d) printed beside the card: prefill ms,
+     decode step median and p90, tokens/s, the step's bound (weights and
+     KV cache read once), the device idle share of one decode step and of
+     one ``serve()`` step with graph traffic (phase 5's ``profiled``
+     traces), peak device memory
 
 It imports nothing of JAX and nothing of the JAX package. It exits non-zero
 without a result when no CUDA device is present or the port is missing.
@@ -262,6 +285,16 @@ SHARDS = 8                   # phase 10: row blocks of the sharded state
 SHARD_SERVE_ROUNDS = 8       # phase 10(e): pool rounds beside the dense pool
 SHARD_REPS = 3               # phase 10(b): timed sessions of each engine
 SHARD_KERNELS = ("B1", "B2", "B6")
+LM_ARCH = "qwen2-1.5b"        # phase 11: the launcher's default arch
+LM_BATCH, LM_PROMPT, LM_NEW, LM_CACHE = 8, 512, 64, 1024
+LM_CHECK_STEPS = 16          # teacher-forced decode steps held against forward
+# bf16 decode against the full forward: both round every product and
+# activation to bf16 (2**-8 relative), in other GEMM shapes and sum orders,
+# through 28 layers; logits of the random model are O(1)
+LM_TOL = 0.125
+LM_TENANTS, LM_QUERY_BATCH = 4, 64
+LM_CHILD_TIMEOUT_S = 300
+LM_SMOKE = False             # True only to rehearse phase 11 on the CPU
 CLOSURE_SCALE, CLOSURE_CAPACITY, CLOSURE_Q = 12, 4160, 256
 COMPLETE_SCALE, COMPLETE_CAPACITY, COMPLETE_PAIRS = 10, 1088, 1024
 WIDE_QS = (1024, 1025)       # the index closures' Q, and a ragged group
@@ -2620,6 +2653,242 @@ def phase_sharded(torch, st, deg_src, batches, rng, card):
     return launched, work
 
 
+# ----------------------------------------------------------------------------
+# Phase 11: the LM co-serving path at qwen2-1.5b's full width
+# ----------------------------------------------------------------------------
+def greedy(torch, model, params, toks, new: int):
+    """Greedy decode of ``new`` tokens after a prefill of ``toks``, timed
+    step by step on the card: (tokens [B, new] as numpy, prefill ms, the
+    decode steps' ms)."""
+    b, p = toks.shape
+    out = np.zeros((b, new), np.int32)
+    with torch.inference_mode():
+        sync(torch)
+        t0 = time.perf_counter()
+        last, caches = model.prefill(params, {"tokens": toks})
+        caches = model.cache_from_prefill(caches, LM_CACHE)
+        tok = torch.argmax(last, dim=-1).to(torch.int32)
+        sync(torch)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        step_ms = []
+        for i in range(new):
+            out[:, i] = tok.cpu().numpy()
+            t0 = time.perf_counter()
+            logits, caches = model.decode_step(params, caches, tok, p + i)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            sync(torch)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    return out, prefill_ms, step_ms
+
+
+def lm_serve_traffic(rng, n: int, deg, issued: list):
+    """``serve()``'s ``clients=`` (LM_TENANTS equal-mix batches a step) and
+    ``query_stream`` (LM_QUERY_BATCH pairs every 4th step, a lone pair on
+    the others; every pair issued is appended to ``issued``)."""
+    def clients(i):
+        return [(f"lm{c}", client_ops(rng, n, SERVE_LANES, removes=False))
+                for c in range(LM_TENANTS)]
+
+    def queries(i):
+        k = LM_QUERY_BATCH if i % 4 == 0 else 1
+        pairs = list(zip(rng.choice(deg, k).tolist(),
+                         rng.integers(0, n, k).tolist()))
+        issued.extend(pairs)
+        return pairs if k > 1 else pairs[0]
+
+    return clients, queries
+
+
+def phase_lm(torch, rng, card, seed: int):
+    """Phase 11: the LM co-serving path at qwen2-1.5b's full width (module
+    docstring). Returns the launches counted inside ``serve()``
+    (``lm_serve_launches``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.serve_loop import serve
+
+    t_phase = time.perf_counter()
+    sync(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    cfg = get_config(LM_ARCH)
+    shape = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd,
+             cfg.d_ff, cfg.vocab, cfg.dtype, cfg.tie_embeddings)
+    if LM_SMOKE:                      # a rehearsal on the CPU
+        cfg = cfg.smoke()
+    elif shape != (28, 1536, 12, 2, 128, 8960, 151936, "bfloat16", True):
+        raise AssertionError(f"{LM_ARCH} is not at its published width: "
+                             f"{shape}")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(DEVICE).manual_seed(seed))
+    sync(torch)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"LM {LM_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv} KV heads of {cfg.hd}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}, tied embeddings; "
+        f"{n_params:,} params (param_count() {cfg.param_count():,}, the "
+        f"difference the q/k/v biases), {w_bytes / 1e9:.3f} GB, drawn on the "
+        f"card from a seeded torch.Generator in {init_s:.2f} s")
+
+    # (a) decode against the full forward, bit-stable greedy tokens
+    b, p = LM_BATCH, LM_PROMPT
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (b, p + LM_CHECK_STEPS)).astype(np.int32)).to(DEVICE)
+    with torch.inference_mode():
+        full, _, _ = model.forward(params, {"tokens": toks})
+        last, caches = model.prefill(params, {"tokens": toks[:, :p]})
+        caches = model.cache_from_prefill(caches, LM_CACHE)
+        errs = [float((last - full[:, p - 1]).abs().max())]
+        finite = bool(torch.isfinite(full).all() and torch.isfinite(last).all())
+        agree = clear = 0
+        for t in range(p, p + LM_CHECK_STEPS):
+            lg, caches = model.decode_step(params, caches, toks[:, t], t)
+            want = full[:, t]
+            errs.append(float((lg - want).abs().max()))
+            finite &= bool(torch.isfinite(lg).all())
+            top2 = want.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > 2 * LM_TOL
+            clear += int(sure.sum())
+            agree += int((lg.argmax(-1) == want.argmax(-1))[sure].sum())
+        scale = float(full.abs().max())
+        del full, caches, lg
+    if not finite:
+        raise AssertionError("a logit of the full-width model is not finite")
+    if max(errs) > LM_TOL or agree != clear:
+        raise AssertionError(
+            f"decode differs from the full forward beyond bf16: max |diff| "
+            f"{max(errs):.4f} (tolerance {LM_TOL}); argmax equal on "
+            f"{agree} of {clear} positions with a clear top-2 margin")
+    log(f"LM (a): prefill of {b} x {p} tokens + {LM_CHECK_STEPS} teacher-"
+        f"forced decode steps against one forward of {p + LM_CHECK_STEPS}: "
+        f"max |diff| {max(errs):.5f} (prefill {errs[0]:.5f}; tolerance "
+        f"{LM_TOL}, logits up to {scale:.3f}); argmax equal on all {clear} "
+        f"positions whose top-2 margin exceeds {2 * LM_TOL}; every logit "
+        f"finite")
+    prompts = rng.integers(0, cfg.vocab, (b, p)).astype(np.int32)
+    ptoks = torch.from_numpy(prompts).to(DEVICE)
+    runs = [greedy(torch, model, params, ptoks, LM_NEW) for _ in range(2)]
+    if not np.array_equal(runs[0][0], runs[1][0]):
+        raise AssertionError("greedy tokens differ between two runs")
+    steps = runs[0][2][1:] + runs[1][2][1:]       # the first step warms up
+    med = statistics.median(steps)
+    p90 = float(np.percentile(steps, 90))
+    kv_bytes = 2 * cfg.n_layers * b * LM_CACHE * cfg.n_kv * cfg.hd * 2  # bf16
+    bound_ms = (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    log(f"LM (d): prefill {runs[0][1]:.2f} / {runs[1][1]:.2f} ms "
+        f"({b} x {p}, cache {LM_CACHE}); decode step median {med:.3f} ms, "
+        f"p90 {p90:.3f} ms over {len(steps)} steps (B = {b}), "
+        f"{b / med * 1e3:.1f} tokens/s; bound {bound_ms:.3f} ms (weights "
+        f"{w_bytes / 1e9:.3f} GB + KV cache {kv_bytes / 1e9:.3f} GB read "
+        f"once at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), measured / bound "
+        f"{med / bound_ms:.1f}x; greedy tokens equal in both runs; {card}")
+
+    # (b) serve() co-serving the SCALE-12 graph
+    n = 1 << SERVER_SCALE
+    s, _, load_s = loaded_server(rng)
+    deg = np.flatnonzero(s.state.ecnt.cpu().numpy()[:n] > 0)
+    issued: list = []
+    clients, queries = lm_serve_traffic(rng, n, deg, issued)
+    reset_counts()
+    out, stats = serve(model, params, prompts, max_new_tokens=LM_NEW,
+                       cache_len=LM_CACHE, graph=s, clients=clients,
+                       query_stream=queries)
+    sync(torch)
+    launches = counts()
+    lanes = LM_NEW * LM_TENANTS * SERVE_LANES
+    want = {"decode_steps": LM_NEW, "decode_tokens": b * LM_NEW,
+            "getpath_calls": len(issued), "graph_ops": lanes,
+            "ingest_batches": LM_NEW * LM_TENANTS, "recoveries": 0}
+    got = {k: getattr(stats, k) for k in want}
+    if got != want or stats.index_hits == 0:
+        raise AssertionError(f"ServeStats: {got} != {want} "
+                             f"(index_hits {stats.index_hits})")
+    if not np.array_equal(out, runs[0][0]):
+        raise AssertionError("serve() decoded other tokens than the bare "
+                             "greedy loop on the same prompts")
+    require_launched(launches, ("B1", "B2", "B4"), "inside serve()")
+    st = s.state
+    pairs = list(zip(rng.choice(deg, QUERIES).tolist(),
+                     rng.integers(0, n, QUERIES).tolist()))
+    res = s.get_reach(pairs)
+    reach = check_reach(st, pairs, res.found, "get_reach after serve()")
+    log(f"LM (b): serve() of {b} x {p} prompts, {LM_NEW} new tokens, cache "
+        f"{LM_CACHE}, beside GraphCoServer(ingest, index) on Graph500 "
+        f"SCALE {SERVER_SCALE} (loaded in {load_s:.1f} s): "
+        f"{stats.wall_s:.2f} s, {stats.decode_tokens / stats.wall_s:.1f} "
+        f"tokens/s; {stats.graph_ops} lanes from {LM_TENANTS} tenants in "
+        f"{stats.ingest_fused_calls} fused applies ({stats.ingest_retries} "
+        f"retries), {stats.getpath_calls} pairs queried ({stats.index_hits} "
+        f"from the index, {stats.index_misses} fell back, "
+        f"{stats.getpath_rounds} rounds), {stats.index_refreshes} index "
+        f"refreshes; tokens equal the bare loop's; get_reach of {QUERIES} "
+        f"pairs after it equals scipy ({reach} reachable, from_index "
+        f"{res.from_index}); launches inside serve() {launches}")
+
+    # (d) device idle share of one decode step and of one serve() step
+    issued.clear()
+    with torch.inference_mode():
+        _, caches = model.prefill(params, {"tokens": ptoks})
+        caches = model.cache_from_prefill(caches, LM_CACHE)
+    tok = ptoks[:, -1]
+
+    def decode():
+        with torch.inference_mode():
+            model.decode_step(params, caches, tok, p)
+
+    def serve_step():
+        """One step of serve()'s loop body, a batch query step."""
+        for cid, ops in clients(0):
+            s.submit_client(cid, ops)
+        s.pump()
+        s.worker_tick("ingest")
+        s.check_health()
+        s.index_tick()
+        s.get_reach(queries(0))
+        decode()
+
+    for name, fn in (("lm_decode_step", decode),
+                     ("lm_serve_step", serve_step)):
+        wall, trace_file = profiled(torch, fn, f"chip_smoke_{name}")
+        busy, per_name = _busy_ms(trace_file)
+        top = sorted(per_name.items(), key=lambda kv: -kv[1])[:4]
+        log(f"profile {name}: wall {wall:.3f} ms under the profiler, device "
+            + (f"busy {busy:.3f} ms (idle {100 * (1 - busy / wall):.1f}%); "
+               + "; ".join(f"{k} {v:.3f} ms" for k, v in top)
+               if per_name else "busy not measured (no device events)"))
+    del caches, params
+    peak = torch.cuda.max_memory_allocated() - base_mem
+
+    # (c) the entry point as a subprocess
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve",
+           "--smoke" if LM_SMOKE else "--no-smoke",
+           "--ingest", "--batch", str(b), "--prompt-len", str(p), "--new",
+           str(LM_NEW), "--cache-len", str(LM_CACHE), "--device", DEVICE]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=LM_CHILD_TIMEOUT_S,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    child_s = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    heads = ("decoded ", "ingest: ", "time-travel: reach", "time-travel: "
+             "epoch", "epoch-diff ", "ring endpoints: ", "stale-index reach")
+    missing = [h for h in heads if not any(x.startswith(h) for x in lines)]
+    if proc.returncode != 0 or missing or not lines[0].startswith(
+            f"decoded {b * LM_NEW} tokens"):
+        raise AssertionError(f"repro_torch.launch.serve: rc "
+                             f"{proc.returncode}, missing {missing}; "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    log(f"LM (c): python -m repro_torch.launch.serve --no-smoke --ingest "
+        f"--batch {b} --prompt-len {p} --new {LM_NEW} --cache-len "
+        f"{LM_CACHE}: rc 0 in {child_s:.1f} s; " + " | ".join(lines))
+    log(f"LM: peak device memory {peak / 1e9:.3f} GB above the phase's "
+        f"start; phase 11 {time.perf_counter() - t_phase:.1f} s; {card}")
+    return launches
+
+
 PROFILE_MARK = "measured"
 PROFILE_SETTLE_S = 0.005
 
@@ -3282,10 +3551,13 @@ def main(argv=None) -> int:
     shutil.rmtree(DURABLE_DIR)
     phase_profile(torch, sh_work)
     del sh_work
+    lm_launches = phase_lm(torch, np.random.default_rng([args.seed, 9]),
+                           card, args.seed)
     for key, k in zip(KERNEL_META, kernels):
         k["serving_launches"] = slaunches[key]
         k["durable_launches"] = dur_launches[key]
         k["sharded_launches"] = sh_launches[key]
+        k["lm_serve_launches"] = lm_launches[key]
     log(f"card: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

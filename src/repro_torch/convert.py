@@ -1,5 +1,5 @@
-"""Carry graph state, op batches and reachability indexes across the numpy
-boundary.
+"""Carry graph state, op batches, reachability indexes and LM params across
+the numpy boundary.
 
 Packed words cross as numpy ``uint32`` arrays (the JAX package's dtype)
 and live in the port as ``torch.int32`` with the same bits. The
@@ -9,11 +9,14 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.core.graph import (GraphState, OpBatch, packed_width,
                                     resolve_device)
 from repro_torch.core.partition import ShardedGraphState, shard_state, unshard
 from repro_torch.index.labels import ReachIndex
+from repro_torch.models.layers import pdict
+from repro_torch.models.transformer import layer_slots
 
 
 def _words_in(x, shape, name) -> torch.Tensor:
@@ -93,3 +96,35 @@ def index_from_numpy(landmarks, out_label_u32, in_label_u32, fwd, bwd, alive,
               torch.from_numpy(np.array(versions, np.int32)))
     return ReachIndex(*(f.to(dev) for f in fields), complete=bool(complete),
                       requested=None if requested is None else int(requested))
+
+
+def _leaf(a, device) -> torch.Tensor:
+    """A numpy array (bfloat16 as the ml_dtypes type JAX hands out) as a
+    tensor of the same dtype and bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def lm_params_from_numpy(cfg, tree, device=None):
+    """The port's LM params (``models.model.Model.init``'s structure) from
+    a JAX ``Model.init`` tree as numpy arrays: ``{"embed": ..., "trunk":
+    {"stacks": [{str(li): leaves with a leading group axis}],
+    "final_norm": ...}}``. Group g of stack s, position li becomes layer
+    module (s, g, li); every tensor lands on ``device``."""
+    dev = resolve_device(device)
+
+    def group(d, g=None):
+        return pdict(**{k: _leaf(v if g is None else v[g], dev)
+                        for k, v in d.items()})
+
+    stacks = tree["trunk"]["stacks"]
+    layers = nn.ModuleList(
+        nn.ModuleDict({name: group(sub, g)
+                       for name, sub in stacks[si][str(li)].items()})
+        for si, g, li, _ in layer_slots(cfg))
+    trunk = nn.ModuleDict({"layers": layers,
+                           "final_norm": group(tree["trunk"]["final_norm"])})
+    return nn.ModuleDict({"embed": group(tree["embed"]), "trunk": trunk})

@@ -1,3 +1,4 @@
-"""The port's entry points, run as modules: ``durable_serve`` (WAL-backed
-graph serving with crash and recovery, ``python -m
-repro_torch.launch.durable_serve``)."""
+"""The port's entry points, run as modules: ``serve`` (LM decode
+co-hosted with graph traffic, ``python -m repro_torch.launch.serve``) and
+``durable_serve`` (WAL-backed graph serving with crash and recovery,
+``python -m repro_torch.launch.durable_serve``)."""

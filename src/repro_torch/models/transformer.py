@@ -1,0 +1,208 @@
+"""Decoder-only LM trunk: the port of ``repro.models.transformer`` for the
+trunk kinds ``"global"`` and ``"local"``.
+
+Layer heterogeneity (gemma2's local/global alternation) is a group
+pattern, as in JAX: ``_pattern(cfg)`` gives [(group pattern, n_groups)]
+stacks. JAX stacks each position's params over the groups and scans them;
+here every layer is its own module, in one ``nn.ModuleList`` in JAX's
+layer order (stack s, group g, position li), and the trunk loops over
+them. Caches keep JAX's structure, a list per stack of ``{str(li): (k,
+v)}`` with each tensor [G, B, L, Kv, hd], so the two compare directly; a
+decode step writes its slot into them in place, as JAX's ``unroll=True``
+serving step does.
+
+Layer kinds (cfg.family -> pattern, see ``_pattern``):
+  "global"     pre-norm GQA attention (full causal) + MLP
+  "local"      same with sliding-window mask
+  "moe", "ssm", "rec"   not ported yet (ROADMAP.md queue A12)
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as L
+
+# ----------------------------------------------------------------------------
+# patterns
+# ----------------------------------------------------------------------------
+_KIND_ALIASES = {"attn_local": "local", "attn": "global"}
+PORTED_KINDS = ("global", "local")
+
+
+def unported(kind: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"layer kind {kind!r} is not ported to repro_torch yet "
+        f"(ROADMAP.md queue A12)")
+
+
+def _norm_kind(kind: str) -> str:
+    return _KIND_ALIASES.get(kind, kind)
+
+
+def _pattern(cfg) -> list[tuple[tuple[str, ...], int]]:
+    """[(group_pattern, n_groups), ...] covering cfg.n_layers layers."""
+    if cfg.family == "ssm":
+        return [(("ssm",), cfg.n_layers)]
+    if cfg.family == "hybrid":
+        pat = tuple(_norm_kind(k) for k in cfg.block_pattern) or ("rec",)
+        n_groups, rem = divmod(cfg.n_layers, len(pat))
+        out = [(pat, n_groups)] if n_groups else []
+        if rem:
+            out.append((pat[:rem], 1))
+        return out
+    if cfg.local_global_period == 2 and cfg.sliding_window:
+        if cfg.n_layers % 2:
+            raise ValueError("the (local, global) alternation needs an even "
+                             f"n_layers, got {cfg.n_layers}")
+        return [(("local", "global"), cfg.n_layers // 2)]
+    kind = "moe" if cfg.n_experts else "global"
+    return [((kind,), cfg.n_layers)]
+
+
+def _layer_kind_window(cfg, kind: str) -> int:
+    return cfg.sliding_window if kind == "local" else 0
+
+
+def layer_slots(cfg):
+    """(stack, group, position, kind) of every layer, in module order."""
+    return [(si, g, li, kind)
+            for si, (pat, n_groups) in enumerate(_pattern(cfg))
+            for g in range(n_groups) for li, kind in enumerate(pat)]
+
+
+# ----------------------------------------------------------------------------
+# per-layer init / forward / decode
+# ----------------------------------------------------------------------------
+def _init_layer(gen, cfg, kind: str) -> nn.ModuleDict:
+    if kind not in PORTED_KINDS:
+        raise unported(kind)
+    dev = gen.device
+    p = {"norm1": L.init_norm(cfg, cfg.d_model, dev),
+         "attn": attn.init_attn(gen, cfg),
+         "norm2": L.init_norm(cfg, cfg.d_model, dev),
+         "mlp": L.init_mlp(gen, cfg, cfg.d_model, cfg.d_ff)}
+    if cfg.sandwich_norm:
+        p["post1"] = L.init_norm(cfg, cfg.d_model, dev)
+        p["post2"] = L.init_norm(cfg, cfg.d_model, dev)
+    return nn.ModuleDict(p)
+
+
+def _layer_fwd(cfg, kind, p, x, positions, *, want_cache: bool):
+    """Full-sequence layer. Returns (x', cache_entry | None, aux_loss)."""
+    if kind not in PORTED_KINDS:
+        raise unported(kind)
+    h = L.apply_norm(cfg, p["norm1"], x)
+    a, kvc = attn.attn_forward(cfg, p["attn"], h, positions,
+                               window=_layer_kind_window(cfg, kind))
+    if cfg.sandwich_norm:
+        a = L.apply_norm(cfg, p["post1"], a)
+    x = x + a
+    h2 = L.apply_norm(cfg, p["norm2"], x)
+    f = L.apply_mlp(cfg, p["mlp"], h2)
+    if cfg.sandwich_norm:
+        f = L.apply_norm(cfg, p["post2"], f)
+    x = x + f
+    return x, (kvc if want_cache else None), 0.0
+
+
+def _layer_decode(cfg, kind, p, x, cache, pos):
+    """One-token layer step. Returns (x', cache') with the cache written in
+    place."""
+    if kind not in PORTED_KINDS:
+        raise unported(kind)
+    h = L.apply_norm(cfg, p["norm1"], x)
+    ck, cv = cache
+    a, ck, cv = attn.attn_decode(cfg, p["attn"], h, ck, cv, pos,
+                                 window=_layer_kind_window(cfg, kind))
+    if cfg.sandwich_norm:
+        a = L.apply_norm(cfg, p["post1"], a)
+    x = x + a
+    h2 = L.apply_norm(cfg, p["norm2"], x)
+    f = L.apply_mlp(cfg, p["mlp"], h2)
+    if cfg.sandwich_norm:
+        f = L.apply_norm(cfg, p["post2"], f)
+    return x + f, (ck, cv)
+
+
+# ----------------------------------------------------------------------------
+# trunk init
+# ----------------------------------------------------------------------------
+def init_trunk(gen, cfg) -> nn.ModuleDict:
+    """{"layers": ModuleList in (stack, group, position) order,
+    "final_norm": ...}."""
+    layers = nn.ModuleList(_init_layer(gen, cfg, kind)
+                           for _, _, _, kind in layer_slots(cfg))
+    return nn.ModuleDict({"layers": layers,
+                          "final_norm": L.init_norm(cfg, cfg.d_model,
+                                                    gen.device)})
+
+
+def _walk(cfg, params):
+    """(stack, group, position, kind, layer params) in module order."""
+    return [(*slot, p) for slot, p in zip(layer_slots(cfg),
+                                          params["layers"], strict=True)]
+
+
+# ----------------------------------------------------------------------------
+# trunk forward (prefill / training forward)
+# ----------------------------------------------------------------------------
+def trunk_fwd(cfg, params, x, positions, *, want_cache: bool):
+    """x: [B,S,d] -> (x', caches per stack (stacked over groups) | None,
+    aux)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    per = [{} for _ in _pattern(cfg)]      # stack -> str(li) -> [entries]
+    for si, _, li, kind, p in _walk(cfg, params):
+        x, cache, a = _layer_fwd(cfg, kind, p, x, positions,
+                                 want_cache=want_cache)
+        aux_total = aux_total + a
+        if want_cache:
+            per[si].setdefault(str(li), []).append(cache)
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    if not want_cache:
+        return x, None, aux_total
+    caches = [{li: (torch.stack([k for k, _ in es]),
+                    torch.stack([v for _, v in es]))
+               for li, es in group.items()} for group in per]
+    return x, caches, aux_total
+
+
+# ----------------------------------------------------------------------------
+# trunk decode (one token)
+# ----------------------------------------------------------------------------
+def trunk_decode(cfg, params, x, caches, pos):
+    """x: [B,1,d]; caches as returned by init_cache/prefill -> (x',
+    caches), the caches written in place (group g of a stack reads and
+    writes its [g] view)."""
+    for si, g, li, kind, p in _walk(cfg, params):
+        ck, cv = caches[si][str(li)]
+        x, _ = _layer_decode(cfg, kind, p, x, (ck[g], cv[g]), pos)
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    return x, caches
+
+
+# ----------------------------------------------------------------------------
+# cache construction
+# ----------------------------------------------------------------------------
+def init_cache(cfg, batch: int, cache_len: int, dtype, device):
+    """Zeroed decode caches matching trunk_decode's expectations."""
+    caches = []
+    for (pat, n_groups) in _pattern(cfg):
+        group = {}
+        for li, kind in enumerate(pat):
+            if kind not in PORTED_KINDS:
+                raise unported(kind)
+            ln = cache_len
+            if kind == "local" and cfg.sliding_window:
+                ln = min(cache_len, _window_cache_len(cfg, cache_len))
+            shape = (n_groups, batch, ln, cfg.n_kv, cfg.hd)
+            group[str(li)] = (torch.zeros(shape, dtype=dtype, device=device),
+                              torch.zeros(shape, dtype=dtype, device=device))
+        caches.append(group)
+    return caches
+
+
+def _window_cache_len(cfg, cache_len: int) -> int:
+    # local-attention layers never need more than the window
+    return min(cache_len, cfg.sliding_window)

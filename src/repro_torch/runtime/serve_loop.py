@@ -1,16 +1,21 @@
-"""``GraphCoServer``'s graph endpoints, in PyTorch: the port of the graph
-half of ``repro.runtime.serve_loop`` (DESIGN.md §5(ii), §12, §13, §16).
+"""Batched serving loop co-hosting LM decode and graph queries, in PyTorch:
+the port of ``repro.runtime.serve_loop`` (DESIGN.md §5(ii), §12, §13, §16).
 
-The server owns a live concurrent graph: mutation batches are applied
-between queries, and GetPath queries run the paper's double-collect
-protocol against the latest published state, so queries never lock out
-mutations and vice versa. With ``ingest=True`` many clients' batches go
-through the admission pool (runtime/ingest.py), which publishes
-double-buffered epochs into a ring of retained epochs (core/epochs.py):
-starved sessions resolve wait-free there, and time-travel and epoch-diff
-queries read it. With ``index=True`` reachability answers come from the
-versioned 2-hop index when it is fresh, or pinned at a retained epoch, and
-from the fused BFS double collect otherwise.
+The serving runtime owns two resources:
+  * an LM decode engine (``serve``: prefill, then greedy ``decode_step``
+    over a KV cache), on the dense-trunk models of ``repro_torch.models``;
+  * a live concurrent graph (``GraphCoServer``): mutation batches are
+    applied between decode steps, and GetPath queries run the paper's
+    double-collect protocol against the latest published state, so queries
+    never lock out mutations and vice versa.
+
+With ``ingest=True`` many clients' batches go through the admission pool
+(runtime/ingest.py), which publishes double-buffered epochs into a ring of
+retained epochs (core/epochs.py): starved sessions resolve wait-free
+there, and time-travel and epoch-diff queries read it. With ``index=True``
+reachability answers come from the versioned 2-hop index when it is fresh,
+or pinned at a retained epoch, and from the fused BFS double collect
+otherwise.
 
 With ``wal_dir=`` the pool writes ``<wal_dir>/wal.log`` and, every
 ``ckpt_every`` rounds, a graph checkpoint under ``<wal_dir>/ckpt``
@@ -23,12 +28,13 @@ The server creates its state on the card unless ``device`` names another.
 With ``mesh=`` (a ``core.distributed.GraphMesh``) the state is a
 ``ShardedGraphState`` on that mesh (DESIGN.md §8): batches go through
 ``partition.apply_ops_fast``, sessions traverse with the sharded BFS, and
-``get_path`` is a Q = 1 ``get_paths``, as in JAX. Not ported yet: the LM
-``serve()`` loop (ROADMAP.md queue A12). ``ServeStats`` is ported so that
-its metric names exist.
+``get_path`` is a Q = 1 ``get_paths``, as in JAX. ``serve`` calls the
+model eagerly under ``torch.inference_mode()`` where JAX jits its decode
+step.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -44,9 +50,11 @@ from repro_torch.core.snapshot import (PathResult, get_path_session,
                                        get_paths_session)
 from repro_torch.index import (build_index, index_fresh,
                                reach_counts_session, reach_session, refresh)
+from repro_torch.models.model import params_device
 from repro_torch.obs import trace as _trace
 from repro_torch.obs.metrics import StatsView
 from repro_torch.obs.metrics import global_registry as _obs_registry
+from repro_torch.runtime.fault import SimulatedCrash
 from repro_torch.runtime.ingest import IngestPool, Ticket, batch_footprint
 from repro_torch.runtime.recovery import (GraphCheckpointer, recover,
                                           resume_pool)
@@ -55,8 +63,10 @@ from repro_torch.runtime.wal import WriteAheadLog
 
 class ServeStats(StatsView):
     """Per-``serve()``-call observability (DESIGN.md §12, §13, §14), stored
-    under ``serve.<field>``. The LM ``serve()`` loop that fills it waits
-    for ROADMAP.md queue A12; the view is here so its names exist."""
+    under ``serve.<field>``: every field reports THIS call's activity —
+    server-lifetime counters are snapshotted at serve start and reported
+    as deltas, except the ``*_max`` high-water marks, which stay lifetime
+    values (a max has no meaningful delta)."""
 
     _PREFIX = "serve"
     _SPEC = {
@@ -534,3 +544,152 @@ class GraphCoServer:
             out["ring.window_hi"] = int(hi)
         out.update(_obs_registry().snapshot())
         return out
+
+
+def serve(model, params, prompts: np.ndarray, *, max_new_tokens: int,
+          cache_len: int, graph: GraphCoServer | None = None,
+          mutator=None, query_stream=None, clients=None,
+          temperature: float = 0.0):
+    """Greedy batched decoding with interleaved graph traffic.
+
+    prompts: int32 [B, P]. Returns (generated int32 [B, max_new_tokens],
+    stats). ``temperature`` is accepted and unused, as in JAX: decoding is
+    greedy.
+
+    ``clients`` (requires ``GraphCoServer(ingest=True)``) is the multi-
+    tenant mutation stream: a callable ``step -> [(client_id, ops), ...]``.
+    Each step's batches are enqueued and one admission round runs —
+    non-conflicting batches coalesce into one fused apply while the read
+    stream keeps hitting the last published snapshot epoch (DESIGN.md §12);
+    the queue is drained after the last decode step.
+    """
+    t0 = time.time()
+    stats = ServeStats()
+    # server counters are lifetime-cumulative; ServeStats reports per-serve
+    # deltas, so every lifetime counter gets a start-of-serve snapshot
+    grow0 = graph.grow_events if graph is not None else 0
+    idx0 = ((graph.index_hits, graph.index_misses, graph.index_refreshes)
+            if graph is not None else (0, 0, 0))
+    ring0 = ((graph.getpath_starved, graph.epoch_resolved, graph.tt_calls,
+              graph.tt_evicted, graph.epoch_diff_calls)
+             if graph is not None else (0, 0, 0, 0, 0))
+    rec0 = ((graph.degraded_reads, graph.rejected_writes, graph.recoveries)
+            if graph is not None else (0, 0, 0))
+    pool = graph.pool if graph is not None else None
+    if clients is not None and pool is None:
+        raise RuntimeError("clients= stream requires GraphCoServer(ingest=True)")
+    ing0 = ((pool.stats.applied, pool.stats.fused_calls, pool.stats.retries,
+             pool.stats.wait_s, pool.stats.epochs)
+            if pool is not None else (0, 0, 0, 0.0, 0))
+    b, p = prompts.shape
+    dev = params_device(params)
+    _session = _trace.span("serve.session", batch=b,
+                           max_new_tokens=max_new_tokens)
+    _session.__enter__()
+    with _trace.span("serve.prefill", batch=b, prompt_len=p), \
+            torch.inference_mode():
+        tokens = torch.from_numpy(np.asarray(prompts, np.int32)).to(dev)
+        last, caches = model.prefill(params, {"tokens": tokens})
+        caches = model.cache_from_prefill(caches, cache_len)
+        tok = torch.argmax(last, dim=-1).to(torch.int32)
+        _trace.fence(last)
+
+    out = np.zeros((b, max_new_tokens), np.int32)
+    for i in range(max_new_tokens):
+        out[:, i] = tok.cpu().numpy()
+        # interleave graph traffic between decode steps (non-blocking
+        # co-serving)
+        if graph is not None and mutator is not None:
+            ops = mutator(i)
+            if ops:
+                graph.submit(ops)
+                stats.graph_ops += len(ops)
+        if graph is not None and clients is not None:
+            for client_id, ops in clients(i) or ():
+                if ops:
+                    graph.submit_client(client_id, ops)
+                    stats.graph_ops += len(ops)
+            # one admission round per decode step (DESIGN.md §12)
+            try:
+                graph.pump()
+            except SimulatedCrash:
+                # worker died mid-round: degrade, spend one restart-budget
+                # slot, recover (DESIGN.md §16); past the budget the
+                # FailurePolicy raises, and that propagates
+                graph.handle_crash()
+        if graph is not None:
+            # heartbeat: the ingest worker ticks every decode step; a
+            # missing tick past the timeout trips check_health into the
+            # same restart-from-recovery path (DESIGN.md §16)
+            graph.worker_tick("ingest")
+            graph.check_health()
+            # background index refresh between decode steps: queries racing
+            # a stale index fall back to BFS, mutations never wait
+            graph.index_tick()
+        if graph is not None and query_stream is not None:
+            q = query_stream(i)
+            if q is not None and len(q) > 0:
+                # a batch is a sequence OF (k, l) pairs (list/tuple/ndarray);
+                # a lone pair — any length-2 sequence of scalars — stays on
+                # the single-query path. Scalars have no __len__.
+                if hasattr(q[0], "__len__"):
+                    batch_pairs = [(int(x[0]), int(x[1])) for x in q]
+                    stats.getpath_calls += len(q)
+                    if graph.index_enabled:
+                        res = graph.get_reach(batch_pairs)
+                        # rounds are charged per pair, and only to the
+                        # pairs that took the BFS fallback session
+                        stats.getpath_rounds += res.rounds * res.fellback
+                    else:
+                        _, rounds = graph.get_paths(batch_pairs)
+                        # every pair shares the one session's double collect
+                        stats.getpath_rounds += rounds * len(q)
+                elif graph.index_enabled:
+                    res = graph.get_reach([(int(q[0]), int(q[1]))])
+                    stats.getpath_calls += 1
+                    stats.getpath_rounds += res.rounds
+                else:
+                    res = graph.get_path(int(q[0]), int(q[1]))
+                    stats.getpath_calls += 1
+                    stats.getpath_rounds += int(res.rounds)
+        with _trace.span("serve.decode_step", step=i), torch.inference_mode():
+            tok_logits, caches = model.decode_step(params, caches, tok, p + i)
+            tok = torch.argmax(tok_logits, dim=-1).to(torch.int32)
+            _trace.fence(tok)
+        stats.decode_steps += 1
+        stats.decode_tokens += b
+    if pool is not None:
+        try:
+            graph.flush()                    # drain whatever is still queued
+        except SimulatedCrash:
+            graph.handle_crash()
+            graph.flush()
+        pool = graph.pool                    # recovery may have replaced it
+        stats.ingest_batches = pool.stats.applied - ing0[0]
+        stats.ingest_fused_calls = pool.stats.fused_calls - ing0[1]
+        stats.ingest_retries = pool.stats.retries - ing0[2]
+        stats.ingest_wait_s = pool.stats.wait_s - ing0[3]
+        stats.ingest_epochs = pool.stats.epochs - ing0[4]
+        # high-water marks are lifetime values
+        stats.ingest_coalesce_max = pool.stats.coalesce_max
+        stats.ingest_wait_max_s = pool.stats.wait_max_s
+        stats.ingest_queue_depth_max = pool.stats.queue_depth_max
+    if graph is not None:
+        stats.grow_events = graph.grow_events - grow0
+        stats.index_hits = graph.index_hits - idx0[0]
+        stats.index_misses = graph.index_misses - idx0[1]
+        stats.index_refreshes = graph.index_refreshes - idx0[2]
+        stats.getpath_starved = graph.getpath_starved - ring0[0]
+        stats.epoch_resolved = graph.epoch_resolved - ring0[1]
+        stats.tt_calls = graph.tt_calls - ring0[2]
+        stats.tt_evicted = graph.tt_evicted - ring0[3]
+        stats.epoch_diff_calls = graph.epoch_diff_calls - ring0[4]
+        stats.degraded_reads = graph.degraded_reads - rec0[0]
+        stats.rejected_writes = graph.rejected_writes - rec0[1]
+        stats.recoveries = graph.recoveries - rec0[2]
+    stats.wall_s = time.time() - t0
+    _session.set(decode_steps=stats.decode_steps,
+                 getpath_calls=stats.getpath_calls,
+                 graph_ops=stats.graph_ops)
+    _session.__exit__(None, None, None)
+    return out, stats
