@@ -228,6 +228,35 @@ Phases (each prints lines; the last line is the JSON result):
      KV cache read once), the device idle share of one decode step and of
      one ``serve()`` step with graph traffic (phase 5's ``profiled``
      traces), peak device memory
+ 12. the remaining LM families at their published widths (bf16, params
+     from a seeded ``torch.Generator`` on the card, each config's widths
+     asserted; each model freed before the next): olmoe-1b-7b (64
+     experts, top 8, qk-norm), granite-moe-3b-a800m (40 experts, top 8),
+     mamba2-780m (48 SSD layers, chunk 128), recurrentgemma-9b ((rec,
+     rec, local) x 12 + (rec, rec), MQA, window 2,048) and whisper-base
+     (6 + 6 layers, 1,500 frames); (a) for each, a prefill of 8 prompts
+     and 16 teacher-forced decode steps against one full forward within
+     LM_TOL, argmax equal where the top-2 margin exceeds twice it (whisper:
+     the decoder over ``encode`` of 1,500 seeded random frames, its self
+     caches padded to 1,024); the prompts are 496 tokens for the MoE
+     configs (512 tokens of forward keep every token: 512 x 8 = 4,096,
+     the drop-free limit), 112 for mamba2 and whisper (128 of forward, a
+     multiple of mamba2's chunk), 512 for recurrentgemma; (b) for
+     olmoe-1b-7b, mamba2-780m and recurrentgemma-9b: greedy decoding (32
+     tokens, cache 1,024) gives the same tokens in two runs, the decode
+     step's median and p90 beside its bound (the weights outside the
+     experts, the experts each step routed to, counted from the routing,
+     and the caches or states, read once at 3.35 TB/s), then ``serve()``
+     beside one SCALE-12 ``GraphCoServer(ingest=True, index=True)`` with
+     phase 11's traffic: the ``ServeStats`` counters add up, the tokens
+     equal the bare loop's, a ``get_reach`` after it equals scipy, and
+     B1, B2 and B4 launched inside each ``serve()`` (their sum is
+     ``lm_family_launches`` in the kernels line); (c) ``python -m
+     repro_torch.launch.serve --arch mamba2-780m --no-smoke --ingest
+     --batch 8 --prompt-len 512 --new 32 --cache-len 1024`` exits 0 with
+     the lines phase 11 (c) requires; (d) the device idle share of one
+     decode step of each served family (phase 5's ``profiled``), and each
+     family's peak device memory
 
 It imports nothing of JAX and nothing of the JAX package. It exits non-zero
 without a result when no CUDA device is present or the port is missing.
@@ -235,6 +264,7 @@ without a result when no CUDA device is present or the port is missing.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -294,7 +324,67 @@ LM_CHECK_STEPS = 16          # teacher-forced decode steps held against forward
 LM_TOL = 0.125
 LM_TENANTS, LM_QUERY_BATCH = 4, 64
 LM_CHILD_TIMEOUT_S = 300
-LM_SMOKE = False             # True only to rehearse phase 11 on the CPU
+LM_SMOKE = False             # True only to rehearse phases 11 and 12 on the CPU
+# phase 12: each remaining LM family at its published width (bf16), the
+# widths asserted as the configs publish them
+FAMILY_WIDTHS = {
+    "olmoe-1b-7b": dict(family="moe", n_layers=16, d_model=2048, n_heads=16,
+                        n_kv=16, hd=128, vocab=50304, n_experts=64, top_k=8,
+                        expert_ff=1024, qk_norm=True, dtype="bfloat16"),
+    "granite-moe-3b-a800m": dict(family="moe", n_layers=32, d_model=1536,
+                                 n_heads=24, n_kv=8, hd=64, vocab=49155,
+                                 n_experts=40, top_k=8, expert_ff=512,
+                                 dtype="bfloat16"),
+    "mamba2-780m": dict(family="ssm", n_layers=48, d_model=1536, vocab=50280,
+                        ssm_state=128, ssm_conv=4, ssm_headdim=64,
+                        ssm_expand=2, ssm_chunk=128, dtype="bfloat16"),
+    "recurrentgemma-9b": dict(family="hybrid", n_layers=38, d_model=4096,
+                              n_heads=16, n_kv=1, hd=256, d_ff=12288,
+                              vocab=256000, sliding_window=2048,
+                              block_pattern=("rec", "rec", "attn_local"),
+                              d_lru=4096, mlp_act="gelu", dtype="bfloat16"),
+    "whisper-base": dict(family="encdec", n_layers=6, enc_layers=6,
+                         enc_frames=1500, d_model=512, n_heads=8, n_kv=8,
+                         hd=64, d_ff=2048, vocab=51865, mlp_act="gelu",
+                         norm_type="layernorm", dtype="bfloat16"),
+}
+# the prompt of phase 12's decode-against-forward check and of its serve():
+# a MoE forward of 496 + 16 tokens keeps every token (gs * k = 4,096, the
+# drop-free limit), mamba2's 112 and 128 are multiples of its chunk or
+# below it, recurrentgemma's 528 stays inside its window of 2,048
+FAMILY_PROMPT = {"olmoe-1b-7b": 496, "granite-moe-3b-a800m": 496,
+                 "mamba2-780m": 112, "recurrentgemma-9b": 512,
+                 "whisper-base": 112}
+# phase 12's tolerance of bf16 decode against the forward (max |diff| of
+# the logits) where LM_TOL does not hold, each held beside the same check
+# of the f32 model (the same draws, unrounded) at rtol = atol = 5e-3. The
+# run also measures the bf16 forward's own distance from the f32 forward.
+# - MoE: bf16 rounding of the forward's and the decode's products moves the
+#   router enough to pick another expert on ~10% of the (token, layer)
+#   top-8 decisions (219 of 2,048 for olmoe-1b-7b, 460 of 4,096 for
+#   granite-moe-3b-a800m, counted by the run); decode then differs by up
+#   to 0.434 / 0.246, the bf16 forward from the f32 one by 0.377 / 0.262.
+#   In f32 no decision moves and the f32 check holds (1.0e-5).
+# - recurrentgemma-9b: the bf16 forward is itself 0.535 from the f32
+#   forward (38 layers of random weights, logits up to ~8); decode is
+#   0.352 from the bf16 forward; f32 decode holds at 1.7e-4.
+# - mamba2-780m (None): 48 SSD layers of random weights amplify rounding
+#   chaotically (the bf16 forward is 5.68 from the f32 one), so no
+#   tolerance is meaningful for the whole bf16 model: JAX's own bf16
+#   decode differs from its forward by 5.19 (logits up to 4.06) and its
+#   f32 decode by 0.056 at this width (B = 2, the JAX package on a CPU).
+#   Held instead: the first SSD layer's bf16 decode against its chunked
+#   forward on the same inputs, and the f32 model's decode against its
+#   forward at LM_TOL (FAMILY_F32_TOL; 0.027 measured)
+# (measured by this script on NVIDIA H100 80GB HBM3, 700.00 W)
+FAMILY_TOL = {"olmoe-1b-7b": 0.625, "granite-moe-3b-a800m": 0.625,
+              "recurrentgemma-9b": 0.5, "mamba2-780m": None}
+F32_TOL = 5e-3               # rtol = atol, as tests/test_models_smoke.py
+SSM_LAYER_RTOL = 1 / 64      # bf16 keeps 8 bits: 1/256 a rounding
+FAMILY_F32_TOL = {"mamba2-780m": (LM_TOL, 0.0)}
+FAMILY_SERVED = ("olmoe-1b-7b", "mamba2-780m", "recurrentgemma-9b")
+FAMILY_NEW = 32              # phase 12's greedy and serve() decode steps
+FAMILY_CHILD = "mamba2-780m"
 CLOSURE_SCALE, CLOSURE_CAPACITY, CLOSURE_Q = 12, 4160, 256
 COMPLETE_SCALE, COMPLETE_CAPACITY, COMPLETE_PAIRS = 10, 1088, 1024
 WIDE_QS = (1024, 1025)       # the index closures' Q, and a ragged group
@@ -2681,6 +2771,42 @@ def greedy(torch, model, params, toks, new: int):
     return out, prefill_ms, step_ms
 
 
+def decode_errors(torch, model, params, full, last, caches, toks, p: int,
+                  tol: float = LM_TOL, rtol: float = 0.0, what: str = "bf16"):
+    """Teacher-forced decode of ``toks`` [B, S] from position ``p`` on the
+    decode-ready ``caches``, held against the full forward's logits
+    ``full`` [B, S, V] (and the prefill's ``last`` against position p - 1):
+    |diff| within ``tol`` + ``rtol`` |forward| at every position, the
+    argmax equal wherever the forward's top-2 margin exceeds 2 ``tol``,
+    every logit finite. Returns (the max |diff| per position, the clear
+    positions, the largest |logit|)."""
+    errs = [float((last - full[:, p - 1]).abs().max())]
+    over = float(((last - full[:, p - 1]).abs()
+                  - rtol * full[:, p - 1].abs()).max())
+    finite = bool(torch.isfinite(full).all() and torch.isfinite(last).all())
+    agree = clear = 0
+    for t in range(p, full.shape[1]):
+        lg, caches = model.decode_step(params, caches, toks[:, t], t)
+        want = full[:, t]
+        errs.append(float((lg - want).abs().max()))
+        over = max(over, float(((lg - want).abs() - rtol * want.abs()).max()))
+        finite &= bool(torch.isfinite(lg).all())
+        top2 = want.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        clear += int(sure.sum())
+        agree += int((lg.argmax(-1) == want.argmax(-1))[sure].sum())
+    if not finite:
+        raise AssertionError(f"a logit of the full-width model ({what}) is "
+                             f"not finite")
+    if over > tol or agree != clear:
+        raise AssertionError(
+            f"decode differs from the full forward ({what}): max |diff| "
+            f"{max(errs):.4f} (tolerance {tol} + {rtol} |logit|); argmax "
+            f"equal on {agree} of {clear} positions with a clear top-2 "
+            f"margin")
+    return errs, clear, float(full.abs().max())
+
+
 def lm_serve_traffic(rng, n: int, deg, issued: list):
     """``serve()``'s ``clients=`` (LM_TENANTS equal-mix batches a step) and
     ``query_stream`` (LM_QUERY_BATCH pairs every 4th step, a lone pair on
@@ -2697,6 +2823,21 @@ def lm_serve_traffic(rng, n: int, deg, issued: list):
         return pairs if k > 1 else pairs[0]
 
     return clients, queries
+
+
+def check_launcher(proc, tokens: int, what: str):
+    """``python -m repro_torch.launch.serve ... --ingest`` exited 0 with its
+    decode line for ``tokens`` tokens, its ingest, ring tour and
+    stale-index lines."""
+    lines = proc.stdout.splitlines()
+    heads = ("decoded ", "ingest: ", "time-travel: reach", "time-travel: "
+             "epoch", "epoch-diff ", "ring endpoints: ", "stale-index reach")
+    missing = [h for h in heads if not any(x.startswith(h) for x in lines)]
+    if proc.returncode != 0 or missing or not lines[0].startswith(
+            f"decoded {tokens} tokens"):
+        raise AssertionError(f"repro_torch.launch.serve {what}: rc "
+                             f"{proc.returncode}, missing {missing}; "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
 
 
 def phase_lm(torch, rng, card, seed: int):
@@ -2741,27 +2882,9 @@ def phase_lm(torch, rng, card, seed: int):
         full, _, _ = model.forward(params, {"tokens": toks})
         last, caches = model.prefill(params, {"tokens": toks[:, :p]})
         caches = model.cache_from_prefill(caches, LM_CACHE)
-        errs = [float((last - full[:, p - 1]).abs().max())]
-        finite = bool(torch.isfinite(full).all() and torch.isfinite(last).all())
-        agree = clear = 0
-        for t in range(p, p + LM_CHECK_STEPS):
-            lg, caches = model.decode_step(params, caches, toks[:, t], t)
-            want = full[:, t]
-            errs.append(float((lg - want).abs().max()))
-            finite &= bool(torch.isfinite(lg).all())
-            top2 = want.topk(2, dim=-1).values
-            sure = (top2[:, 0] - top2[:, 1]) > 2 * LM_TOL
-            clear += int(sure.sum())
-            agree += int((lg.argmax(-1) == want.argmax(-1))[sure].sum())
-        scale = float(full.abs().max())
-        del full, caches, lg
-    if not finite:
-        raise AssertionError("a logit of the full-width model is not finite")
-    if max(errs) > LM_TOL or agree != clear:
-        raise AssertionError(
-            f"decode differs from the full forward beyond bf16: max |diff| "
-            f"{max(errs):.4f} (tolerance {LM_TOL}); argmax equal on "
-            f"{agree} of {clear} positions with a clear top-2 margin")
+        errs, clear, scale = decode_errors(torch, model, params, full, last,
+                                           caches, toks, p)
+        del full, caches
     log(f"LM (a): prefill of {b} x {p} tokens + {LM_CHECK_STEPS} teacher-"
         f"forced decode steps against one forward of {p + LM_CHECK_STEPS}: "
         f"max |diff| {max(errs):.5f} (prefill {errs[0]:.5f}; tolerance "
@@ -2872,21 +2995,385 @@ def phase_lm(torch, rng, card, seed: int):
                           timeout=LM_CHILD_TIMEOUT_S,
                           env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     child_s = time.perf_counter() - t0
+    check_launcher(proc, b * LM_NEW, "")
     lines = proc.stdout.splitlines()
-    heads = ("decoded ", "ingest: ", "time-travel: reach", "time-travel: "
-             "epoch", "epoch-diff ", "ring endpoints: ", "stale-index reach")
-    missing = [h for h in heads if not any(x.startswith(h) for x in lines)]
-    if proc.returncode != 0 or missing or not lines[0].startswith(
-            f"decoded {b * LM_NEW} tokens"):
-        raise AssertionError(f"repro_torch.launch.serve: rc "
-                             f"{proc.returncode}, missing {missing}; "
-                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
     log(f"LM (c): python -m repro_torch.launch.serve --no-smoke --ingest "
         f"--batch {b} --prompt-len {p} --new {LM_NEW} --cache-len "
         f"{LM_CACHE}: rc 0 in {child_s:.1f} s; " + " | ".join(lines))
     log(f"LM: peak device memory {peak / 1e9:.3f} GB above the phase's "
         f"start; phase 11 {time.perf_counter() - t_phase:.1f} s; {card}")
     return launches
+
+
+# ----------------------------------------------------------------------------
+# Phase 12: the MoE, SSM, RG-LRU and encoder-decoder families at full width
+# ----------------------------------------------------------------------------
+def cache_bytes(model, b: int, cache_len: int) -> int:
+    """Bytes one decode step reads of the decoder caches (allocated on the
+    meta device): each attention layer's whole K/V cache, as the step
+    reads it, and each SSM / RG-LRU state and conv tail twice (read and
+    written)."""
+    from repro_torch.models import transformer as T
+
+    total = 0
+    caches = model.init_cache(b, cache_len, device="meta")
+    for (pat, _), group in zip(T._pattern(model.cfg), caches):
+        for li, kind in enumerate(pat):
+            n = sum(t.numel() * t.element_size() for t in group[str(li)])
+            total += n if kind in T.ATTN_KINDS else 2 * n
+    return total
+
+
+def routed_per_step(torch, model, params, ptoks, out):
+    """Replays greedy's steps (prefill of ``ptoks``, then its tokens
+    ``out``) with ``moe.route`` counting: for each step, the distinct
+    experts routed to, summed over the MoE layers."""
+    from repro_torch.models import moe
+
+    route, seen, steps = moe.route, [], []
+
+    def counting(cfg, router, x, cap):
+        r = route(cfg, router, x, cap)
+        seen.append(int(torch.unique(r["se"][r["keep"]]).numel()))
+        return r
+
+    moe.route = counting
+    try:
+        with torch.inference_mode():
+            _, caches = model.prefill(params, {"tokens": ptoks})
+            caches = model.cache_from_prefill(caches, LM_CACHE)
+            p = ptoks.shape[1]
+            for i in range(out.shape[1]):
+                seen.clear()
+                tok = torch.from_numpy(out[:, i]).to(DEVICE)
+                model.decode_step(params, caches, tok, p + i)
+                steps.append(sum(seen))
+    finally:
+        moe.route = route
+    return steps
+
+
+def decode_profile(torch, model, params, ptoks, name: str):
+    """Phase 5's ``profiled`` trace of one decode step after a prefill of
+    ``ptoks``: (busy ms, wall ms)."""
+    with torch.inference_mode():
+        _, caches = model.prefill(params, {"tokens": ptoks})
+        caches = model.cache_from_prefill(caches, LM_CACHE)
+    tok, p = ptoks[:, -1], ptoks.shape[1]
+
+    def decode():
+        with torch.inference_mode():
+            model.decode_step(params, caches, tok, p)
+
+    wall, trace_file = profiled(torch, decode, f"chip_smoke_{name}")
+    busy, per_name = _busy_ms(trace_file)
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:4]
+    log(f"profile {name}: wall {wall:.3f} ms under the profiler, device "
+        + (f"busy {busy:.3f} ms (idle {100 * (1 - busy / wall):.1f}%); "
+           + "; ".join(f"{k} {v:.3f} ms" for k, v in top)
+           if per_name else "busy not measured (no device events)"))
+    return busy, wall
+
+
+def family_check(torch, model, params, cfg, p: int, seed: int, tol, rtol=0.0,
+                 what="bf16"):
+    """(a): a prefill of LM_BATCH x ``p`` tokens and LM_CHECK_STEPS
+    teacher-forced decode steps against one full forward (whisper: the
+    decoder over ``encode`` of seeded random frames, its self caches
+    padded to LM_CACHE), held by ``decode_errors`` at ``tol`` (None: only
+    measured). The tokens and frames depend on ``seed`` alone, so the bf16
+    and f32 runs see the same. Returns (max |diff| per position, clear
+    positions, largest |logit|, the forward's f32 logits at positions p - 1
+    on, the (token, layer) routing decisions that differ between the
+    forward and the decode and their count, or None without experts)."""
+    from repro_torch.models import encdec as ed
+    from repro_torch.models import moe
+    from repro_torch.models.layers import dtype_of
+
+    b = LM_BATCH
+    rng = np.random.default_rng([seed, 12])
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (b, p + LM_CHECK_STEPS)).astype(np.int32)).to(DEVICE)
+    route, picks = moe.route, []
+
+    def recording(cfg_, router, x, cap):
+        r = route(cfg_, router, x, cap)
+        if x.shape[1] != p:            # the forward's and the decode's
+            picks.append(r["top_e"].sort(-1).values)
+        return r
+
+    moe.route = recording
+    try:
+        with torch.inference_mode():
+            if cfg.family != "encdec":
+                full, _, _ = model.forward(params, {"tokens": toks})
+                last, caches = model.prefill(params, {"tokens": toks[:, :p]})
+                caches = model.cache_from_prefill(caches, LM_CACHE)
+            else:
+                frames = torch.from_numpy(rng.standard_normal(
+                    (b, cfg.enc_frames, cfg.d_model)).astype(np.float32)).to(
+                        DEVICE, dtype_of(cfg))
+                enc = ed.encode(cfg, params, frames)
+                full, _ = ed.decode_fwd(cfg, params, toks, enc,
+                                        want_cache=False)
+                last, ((sk, sv), cross) = model.prefill(
+                    params, {"tokens": toks[:, :p], "frames": frames})
+                pad = [torch.zeros(sk.shape[:2] + (LM_CACHE,) + sk.shape[3:],
+                                   dtype=sk.dtype, device=DEVICE)
+                       for _ in range(2)]
+                pad[0][:, :, :p], pad[1][:, :, :p] = sk, sv
+                caches = (tuple(pad), cross)
+            ref = full[:, p - 1:].float().clone()
+            errs, clear, scale = decode_errors(
+                torch, model, params, full, last, caches, toks, p,
+                float("inf") if tol is None else tol, rtol, what)
+    finally:
+        moe.route = route
+    flips = None
+    if picks:
+        nl = cfg.n_layers
+        fwd, dec = picks[:nl], picks[nl:]
+        flips = [0, 0]
+        for i, step in enumerate(dec):
+            want = fwd[i % nl][:, p + i // nl]
+            flips[0] += int((step[:, 0] != want).any(-1).sum())
+            flips[1] += want.shape[0]
+    return errs, clear, scale, ref, flips
+
+
+def ssm_layer_check(torch, params, cfg, p: int, seed: int):
+    """mamba2's first SSD layer in the model's dtype: ``apply_ssm`` over
+    the prompt, then LM_CHECK_STEPS ``apply_ssm_decode`` steps, against
+    ``apply_ssm`` over the whole sequence on the same inputs (the embedded,
+    normed tokens of ``family_check``), within LM_TOL + SSM_LAYER_RTOL
+    |output| (a few bf16 roundings of outputs that reach ~20): (max |diff|
+    per step, largest |output|)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm
+
+    rng = np.random.default_rng([seed, 12])
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (LM_BATCH, p + LM_CHECK_STEPS)).astype(np.int32)).to(
+            DEVICE)
+    lp = params["trunk"]["layers"][0]
+    with torch.inference_mode():
+        h = L.apply_norm(cfg, lp["norm1"],
+                         L.embed_tokens(cfg, params["embed"], toks))
+        y, _, _ = ssm.apply_ssm(cfg, lp["ssm"], h)
+        _, state, conv = ssm.apply_ssm(cfg, lp["ssm"], h[:, :p])
+        errs = []
+        for t in range(p, p + LM_CHECK_STEPS):
+            yt, state, conv = ssm.apply_ssm_decode(cfg, lp["ssm"],
+                                                   h[:, t:t + 1], state, conv)
+            want = y[:, t:t + 1]
+            errs.append(float((yt - want).abs().max()))
+            over = ((yt - want).abs() - SSM_LAYER_RTOL * want.abs()).max()
+            if float(over) > LM_TOL:
+                raise AssertionError(
+                    f"mamba2's first SSD layer: decode differs from its "
+                    f"chunked forward by {errs[-1]:.4f} at {t} (tolerance "
+                    f"{LM_TOL} + {SSM_LAYER_RTOL} |output|)")
+    return errs, float(y.abs().max())
+
+
+def phase_lm_families(torch, rng, card, seed: int):
+    """Phase 12: the MoE, SSM, RG-LRU and encoder-decoder families at their
+    published widths (module docstring). Returns the launches counted
+    inside their ``serve()`` calls, summed (``lm_family_launches``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.serve_loop import serve
+
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in KERNEL_META}
+    n = 1 << SERVER_SCALE
+    s, _, load_s = loaded_server(rng)
+    deg = np.flatnonzero(s.state.ecnt.cpu().numpy()[:n] > 0)
+    log(f"LM families: one GraphCoServer(ingest, index) on Graph500 SCALE "
+        f"{SERVER_SCALE} (loaded in {load_s:.1f} s) beside each serve()")
+    b = LM_BATCH
+    for arch, widths in FAMILY_WIDTHS.items():
+        t_arch = time.perf_counter()
+        sync(torch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        cfg = get_config(arch)
+        got = {k: getattr(cfg, k) for k in widths}
+        if got != widths:
+            raise AssertionError(f"{arch} is not at its published width: "
+                                 f"{got}")
+        if LM_SMOKE:                      # a rehearsal on the CPU
+            cfg = cfg.smoke()
+        model = build_model(cfg)
+        params = model.init(torch.Generator(DEVICE).manual_seed(seed))
+        sync(torch)
+        named = dict(params.named_parameters())
+        w_bytes = sum(t.numel() * t.element_size() for t in named.values())
+        x_bytes = sum(t.numel() * t.element_size() for k, t in named.items()
+                      if k.rsplit(".", 2)[-2:-1] == ["moe"]
+                      and not k.endswith("router"))
+        log(f"LM {arch}: {', '.join(f'{k} {v}' for k, v in widths.items())}"
+            f"; {sum(t.numel() for t in named.values()):,} params "
+            f"(param_count() {cfg.param_count():,}), {w_bytes / 1e9:.3f} GB "
+            f"({x_bytes / 1e9:.3f} GB of it experts), drawn on the card from "
+            f"a seeded torch.Generator")
+
+        # (a) decode against the full forward
+        p = FAMILY_PROMPT[arch]
+        tol = FAMILY_TOL.get(arch, LM_TOL)
+        errs, clear, scale, ref, flips = family_check(
+            torch, model, params, cfg, p, seed, tol)
+        full = (f"decode_fwd of {p + LM_CHECK_STEPS} tokens over encode "
+                f"of {cfg.enc_frames} random frames"
+                if cfg.family == "encdec"
+                else f"forward of {p + LM_CHECK_STEPS} tokens")
+        log(f"LM {arch} (a): prefill of {b} x {p} tokens + {LM_CHECK_STEPS} "
+            f"teacher-forced decode steps against one {full}: max |diff| "
+            f"{max(errs):.5f} (prefill {errs[0]:.5f}; "
+            + (f"tolerance {tol}" if tol is not None else
+               "measured, not held: see FAMILY_TOL")
+            + f", logits up to {scale:.3f}); argmax equal on all {clear} "
+            f"positions whose top-2 margin exceeds {2 * (tol or 0)}; every "
+            f"logit finite"
+            + (f"; the router picked other experts in decode than in the "
+               f"forward on {flips[0]} of {flips[1]} (token, layer) "
+               f"decisions" if flips else ""))
+        if cfg.family == "ssm":
+            lerrs, lscale = ssm_layer_check(torch, params, cfg, p, seed)
+            log(f"LM {arch} (a): the first SSD layer's decode against its "
+                f"chunked forward on the same inputs: max |diff| "
+                f"{max(lerrs):.5f} (tolerance {LM_TOL} + {SSM_LAYER_RTOL:.4f}"
+                f" |output|, outputs up to "
+                f"{lscale:.3f})")
+
+        if arch in FAMILY_SERVED:
+            # (b) greedy twice, the decode step beside its bound, serve()
+            prompts = rng.integers(0, cfg.vocab, (b, p)).astype(np.int32)
+            ptoks = torch.from_numpy(prompts).to(DEVICE)
+            runs = [greedy(torch, model, params, ptoks, FAMILY_NEW)
+                    for _ in range(2)]
+            if not np.array_equal(runs[0][0], runs[1][0]):
+                raise AssertionError(f"{arch}: greedy tokens differ between "
+                                     f"two runs")
+            steps = runs[0][2][1:] + runs[1][2][1:]   # the first warms up
+            med = statistics.median(steps)
+            p90 = float(np.percentile(steps, 90))
+            c_bytes = cache_bytes(model, b, LM_CACHE)
+            read = w_bytes + c_bytes
+            routed = ""
+            if x_bytes:
+                per = routed_per_step(torch, model, params, ptoks,
+                                      runs[0][0])
+                e_bytes = x_bytes / (cfg.n_layers * cfg.n_experts)
+                read = w_bytes - x_bytes + statistics.median(per) * e_bytes \
+                    + c_bytes
+                routed = (f", experts routed {statistics.median(per) / cfg.n_layers:.1f}"
+                          f" a layer (median step; {min(per)}-{max(per)} in "
+                          f"all) of {cfg.n_experts} at {e_bytes / 1e6:.2f} "
+                          f"MB each")
+            bound_ms = read / HBM_BYTES_PER_S * 1e3
+            log(f"LM {arch} (b): prefill {runs[0][1]:.2f} / "
+                f"{runs[1][1]:.2f} ms ({b} x {p}, cache {LM_CACHE}); decode "
+                f"step median {med:.3f} ms, p90 {p90:.3f} ms over "
+                f"{len(steps)} steps (B = {b}), {b / med * 1e3:.1f} "
+                f"tokens/s; bound {bound_ms:.3f} ms ({read / 1e9:.3f} GB "
+                f"read once at {HBM_BYTES_PER_S / 1e12:.2f} TB/s: weights "
+                f"outside the experts {(w_bytes - x_bytes) / 1e9:.3f} GB"
+                f"{routed}, caches / states {c_bytes / 1e9:.3f} GB), "
+                f"measured / bound {med / bound_ms:.1f}x; greedy tokens "
+                f"equal in both runs; {card}")
+
+            issued: list = []
+            clients, queries = lm_serve_traffic(rng, n, deg, issued)
+            reset_counts()
+            out, stats = serve(model, params, prompts,
+                               max_new_tokens=FAMILY_NEW, cache_len=LM_CACHE,
+                               graph=s, clients=clients, query_stream=queries)
+            sync(torch)
+            launches = counts()
+            want = {"decode_steps": FAMILY_NEW,
+                    "decode_tokens": b * FAMILY_NEW,
+                    "getpath_calls": len(issued),
+                    "graph_ops": FAMILY_NEW * LM_TENANTS * SERVE_LANES,
+                    "ingest_batches": FAMILY_NEW * LM_TENANTS,
+                    "recoveries": 0}
+            got = {k: getattr(stats, k) for k in want}
+            if got != want or stats.index_hits == 0:
+                raise AssertionError(f"{arch} ServeStats: {got} != {want} "
+                                     f"(index_hits {stats.index_hits})")
+            if not np.array_equal(out, runs[0][0]):
+                raise AssertionError(f"{arch}: serve() decoded other tokens "
+                                     f"than the bare greedy loop")
+            require_launched(launches, ("B1", "B2", "B4"),
+                             f"inside {arch}'s serve()")
+            for k, v in launches.items():
+                total[k] += v
+            pairs = list(zip(rng.choice(deg, QUERIES).tolist(),
+                             rng.integers(0, n, QUERIES).tolist()))
+            res = s.get_reach(pairs)
+            reach = check_reach(s.state, pairs, res.found,
+                                f"get_reach after {arch}'s serve()")
+            log(f"LM {arch} (b): serve() of {b} x {p} prompts, {FAMILY_NEW} "
+                f"new tokens, cache {LM_CACHE}: {stats.wall_s:.2f} s, "
+                f"{stats.decode_tokens / stats.wall_s:.1f} tokens/s; "
+                f"{stats.graph_ops} lanes from {LM_TENANTS} tenants in "
+                f"{stats.ingest_fused_calls} fused applies "
+                f"({stats.ingest_retries} retries), {stats.getpath_calls} "
+                f"pairs queried ({stats.index_hits} from the index), "
+                f"{stats.index_refreshes} index refreshes; tokens equal the "
+                f"bare loop's; get_reach of {QUERIES} pairs after it equals "
+                f"scipy ({reach} reachable); launches inside serve() "
+                f"{launches}")
+            # (d) the device's busy share of one decode step
+            decode_profile(torch, model, params, ptoks,
+                           f"lm_decode_step_{arch}")
+        del params, model, named
+        sync(torch)
+        peak = torch.cuda.max_memory_allocated() - base_mem
+
+        # (a) in f32: the same draws unrounded, the same tokens
+        torch.cuda.empty_cache()
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        model = build_model(cfg32)
+        params = model.init(torch.Generator(DEVICE).manual_seed(seed))
+        ftol, frtol = FAMILY_F32_TOL.get(arch, (F32_TOL, F32_TOL))
+        ferrs, fclear, _, fref, fflips = family_check(
+            torch, model, params, cfg32, p, seed, ftol, frtol, "f32")
+        own = float((ref - fref).abs().max())
+        del params, model, ref, fref
+        log(f"LM {arch} (a) in f32: max |diff| {max(ferrs):.6f} (tolerance "
+            f"{ftol} + {frtol} |logit|; argmax equal on all {fclear} clear "
+            f"positions)"
+            + (f"; routing differs on {fflips[0]} of {fflips[1]} decisions"
+               if fflips else "")
+            + f"; the bf16 forward's own distance from the f32 forward at "
+            f"the checked positions: max |diff| {own:.5f}")
+        log(f"LM {arch}: peak device memory {peak / 1e9:.3f} GB above its "
+            f"start (bf16), {(torch.cuda.max_memory_allocated() - base_mem) / 1e9:.3f}"
+            f" GB with the f32 check; {time.perf_counter() - t_arch:.1f} s; "
+            f"{card}")
+    del s
+
+    # (c) the entry point as a subprocess, at full width
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           FAMILY_CHILD, "--smoke" if LM_SMOKE else "--no-smoke", "--ingest",
+           "--batch", str(b), "--prompt-len", str(LM_PROMPT), "--new",
+           str(FAMILY_NEW), "--cache-len", str(LM_CACHE), "--device", DEVICE]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=LM_CHILD_TIMEOUT_S,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    child_s = time.perf_counter() - t0
+    check_launcher(proc, b * FAMILY_NEW, f"--arch {FAMILY_CHILD}")
+    log(f"LM families (c): python -m repro_torch.launch.serve --arch "
+        f"{FAMILY_CHILD} --no-smoke --ingest --batch {b} --prompt-len "
+        f"{LM_PROMPT} --new {FAMILY_NEW} --cache-len {LM_CACHE}: rc 0 in "
+        f"{child_s:.1f} s; " + " | ".join(proc.stdout.splitlines()))
+    log(f"LM families: launches inside the three serve() calls {total}; "
+        f"phase 12 {time.perf_counter() - t_phase:.1f} s; {card}")
+    return total
 
 
 PROFILE_MARK = "measured"
@@ -3553,11 +4040,14 @@ def main(argv=None) -> int:
     del sh_work
     lm_launches = phase_lm(torch, np.random.default_rng([args.seed, 9]),
                            card, args.seed)
+    fam_launches = phase_lm_families(
+        torch, np.random.default_rng([args.seed, 10]), card, args.seed)
     for key, k in zip(KERNEL_META, kernels):
         k["serving_launches"] = slaunches[key]
         k["durable_launches"] = dur_launches[key]
         k["sharded_launches"] = sh_launches[key]
         k["lm_serve_launches"] = lm_launches[key]
+        k["lm_family_launches"] = fam_launches[key]
     log(f"card: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

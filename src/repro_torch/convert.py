@@ -128,3 +128,28 @@ def lm_params_from_numpy(cfg, tree, device=None):
     trunk = nn.ModuleDict({"layers": layers,
                            "final_norm": group(tree["trunk"]["final_norm"])})
     return nn.ModuleDict({"embed": group(tree["embed"]), "trunk": trunk})
+
+
+def encdec_params_from_numpy(cfg, tree, device=None):
+    """The port's encoder-decoder params (``models.encdec.init_encdec``'s
+    structure) from a JAX ``EncDecModel.init`` tree as numpy arrays:
+    ``{"embed", "enc", "enc_norm", "dec", "dec_norm"}`` with ``enc`` and
+    ``dec`` stacked over layers; layer i of each becomes module i."""
+    dev = resolve_device(device)
+
+    def group(d, i=None):
+        return pdict(**{k: _leaf(v if i is None else v[i], dev)
+                        for k, v in d.items()})
+
+    def stack(sub, n):
+        return nn.ModuleList(
+            nn.ModuleDict({name: group(leaves, i)
+                           for name, leaves in sub.items()})
+            for i in range(n))
+
+    return nn.ModuleDict({
+        "embed": group(tree["embed"]),
+        "enc": stack(tree["enc"], cfg.enc_layers),
+        "enc_norm": group(tree["enc_norm"]),
+        "dec": stack(tree["dec"], cfg.n_layers),
+        "dec_norm": group(tree["dec_norm"])})

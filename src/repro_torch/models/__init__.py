@@ -1,4 +1,4 @@
-"""The port's decoder-only LM (``repro.models`` for the trunk kinds
-``"global"`` and ``"local"``): ``layers``, ``attention``, ``transformer``
-and ``model`` (``build_model``). The MoE, SSM, RG-LRU and
-encoder-decoder modules wait for ROADMAP.md queue A12."""
+"""The port's LMs (``repro.models``): ``layers``, ``attention``,
+``transformer`` (the trunk kinds "global", "local", "moe", "ssm", "rec"),
+``moe``, ``ssm``, ``rglru``, ``encdec`` and ``model`` (``build_model``:
+``Model`` for the decoder-only families, ``EncDecModel`` for whisper)."""

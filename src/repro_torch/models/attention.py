@@ -1,12 +1,12 @@
-"""GQA attention: chunked online-softmax forward and KV-cache decode; the
-port of ``repro.models.attention`` for the trunk kinds ``"global"`` and
-``"local"``.
+"""GQA attention: chunked online-softmax forward, KV-cache decode, options;
+the port of ``repro.models.attention``.
 
-One implementation serves the dense archs via config flags: qk_norm
-(qwen3), qkv_bias (qwen2), attn_softcap (gemma2), sliding_window with
-local/global alternation (gemma2). Non-causal, rotation-free and cross
-attention (whisper) wait with the encoder-decoder for ROADMAP.md queue
-A12.
+One implementation serves every arch via config flags: qk_norm (qwen3,
+olmoe), qkv_bias (qwen2), attn_softcap (gemma2), sliding_window with
+local/global alternation (gemma2, recurrentgemma), MQA kv = 1
+(recurrentgemma), and non-causal, rotation-free and cross attention
+(whisper). JAX's ``attn_decode(update_cache=)``, which no JAX caller
+passes, is not ported.
 
 The prefill path scans KV chunks of at most 1,024 with a running (max,
 denom, acc), in JAX's chunk order and with its finite ``NEG_INF`` mask, so
@@ -34,7 +34,9 @@ NEG_INF = -2.3819763e38
 # ----------------------------------------------------------------------------
 # params
 # ----------------------------------------------------------------------------
-def init_attn(gen, cfg) -> nn.ParameterDict:
+def init_attn(gen, cfg, *, cross: bool = False) -> nn.ParameterDict:
+    """A cross-attention layer (``cross=True``) has no q/k/v bias and no
+    q/k norm, as in JAX."""
     dt = dtype_of(cfg)
     d, hd = cfg.d_model, cfg.hd
     qd, kvd = cfg.n_heads * hd, cfg.n_kv * hd
@@ -43,11 +45,11 @@ def init_attn(gen, cfg) -> nn.ParameterDict:
          "wv": dense_init(gen, (d, kvd), dt),
          "wo": dense_init(gen, (qd, d), dt)}
     f32 = {"dtype": torch.float32, "device": gen.device}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = torch.zeros((qd,), **f32)
         p["bk"] = torch.zeros((kvd,), **f32)
         p["bv"] = torch.zeros((kvd,), **f32)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["qnorm"] = torch.ones((hd,), **f32)
         p["knorm"] = torch.ones((hd,), **f32)
     return pdict(**p)
@@ -109,11 +111,13 @@ def _pick_chunk(t: int, chunk: int) -> int:
     return t
 
 
-def _attend_chunked(cfg, q, k, v, *, window: int, chunk: int = 1024):
-    """Causal q: [B,S,H,hd], k/v: [B,T,Kv,hd] -> [B,S,H,hd].
+def _attend_chunked(cfg, q, k, v, *, causal: bool = True, window: int,
+                    chunk: int = 1024):
+    """q: [B,S,H,hd], k/v: [B,T,Kv,hd] -> [B,S,H,hd].
 
-    Online-softmax scan over KV chunks; ``window`` > 0 restricts each query
-    to a trailing window (sliding-window attention)."""
+    Online-softmax scan over KV chunks; ``causal`` masks keys after each
+    query, ``window`` > 0 restricts each query to a trailing window
+    (sliding-window attention)."""
     b, s, h, hd = q.shape
     t = k.shape[1]
     kv = cfg.n_kv
@@ -141,7 +145,9 @@ def _attend_chunked(cfg, q, k, v, *, window: int, chunk: int = 1024):
         sc = _bmm_f32(qg, kci.transpose(1, 2)).view(b * kv, g, s, ck)
         sc = softcap(sc, cfg.attn_softcap)
         kv_ids = c * ck + torch.arange(ck, dtype=torch.int32, device=dev)
-        mask = kv_ids[None, :] <= q_ids[:, None]
+        mask = torch.ones((s, ck), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kv_ids[None, :] <= q_ids[:, None]
         if window:
             mask &= (q_ids[:, None] - kv_ids[None, :]) < window
         sc = torch.where(mask, sc, NEG_INF)
@@ -160,16 +166,20 @@ def _attend_chunked(cfg, q, k, v, *, window: int, chunk: int = 1024):
 # ----------------------------------------------------------------------------
 # public forward paths
 # ----------------------------------------------------------------------------
-def attn_forward(cfg, p, x, positions, *, window=0):
-    """Full-sequence causal self-attention (prefill / training forward).
+def attn_forward(cfg, p, x, positions, *, causal=True, window=0,
+                 memory=None, use_rope=True):
+    """Full-sequence attention (prefill / training forward / encoder /
+    cross).
 
-    x: [B,S,d]; positions: int [S]. Returns (out [B,S,d], (k, v) cache
-    entries [B,S,Kv,hd], k after its rotation)."""
+    x: [B,S,d]; positions: int [S]; memory: [B,T,d], the k/v source of
+    cross attention (never rotated). Returns (out [B,S,d], (k, v) cache
+    entries [B,T,Kv,hd], k after its rotation)."""
     q = _project_q(cfg, p, x)
-    k, v = _project_kv(cfg, p, x)
-    q = apply_rope(cfg, q, positions[None, :])
-    k = apply_rope(cfg, k, positions[None, :])
-    out = _attend_chunked(cfg, q, k, v, window=window)
+    k, v = _project_kv(cfg, p, x if memory is None else memory)
+    if use_rope and memory is None:
+        q = apply_rope(cfg, q, positions[None, :])
+        k = apply_rope(cfg, k, positions[None, :])
+    out = _attend_chunked(cfg, q, k, v, causal=causal, window=window)
     b, s = x.shape[0], x.shape[1]
     out = out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
     return out, (k, v)

@@ -1,18 +1,19 @@
-"""Unified model API: ``build_model(config)`` -> ``Model`` with init, forward,
-loss, prefill and decode; the port of ``repro.models.model`` for the
-dense-trunk configs.
+"""Unified model API: ``build_model(config)`` -> ``Model`` (decoder-only:
+dense, moe, ssm, hybrid, vlm backbone) or ``EncDecModel`` (whisper) with
+init, forward, loss, prefill and decode; the port of
+``repro.models.model``.
 
 The serving steps, as ``runtime.serve_loop.serve`` calls them:
   prefill:  prefill(params, batch) -> (last logits [B,V], caches)
   decode:   decode_step(params, caches, tokens, pos) -> (logits, caches)
 
-``params`` is the ``nn.ModuleDict`` that ``Model.init`` returns (or that
-``convert.lm_params_from_numpy`` builds from a JAX tree); it lives on the
-device of the generator that drew it. ``loss_and_metrics`` is the forward
-loss only: gradients, the optimizer and the training loop wait for
-ROADMAP.md queue A12, with the MoE, SSM, RG-LRU and encoder-decoder
-families. There is no activation-sharding hook: without a mesh JAX's is a
-no-op, and the LM half of ``parallel/`` is queue A12 too.
+``params`` is the ``nn.ModuleDict`` that ``init`` returns (or that
+``convert.lm_params_from_numpy`` / ``encdec_params_from_numpy`` builds
+from a JAX tree); it lives on the device of the generator that drew it.
+``loss_and_metrics`` is the forward loss only: gradients, the optimizer
+and the training loop wait for ROADMAP.md queue A12 (iii). There is no
+activation-sharding hook: without a mesh JAX's is a no-op, and the LM
+half of ``parallel/`` is queue A12 (iii) too.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.graph import resolve_device
+from repro_torch.models import encdec as ed
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -39,7 +41,8 @@ def params_device(params) -> torch.device:
 
 
 class Model:
-    """Decoder-only LM on the ported trunk kinds (dense / vlm backbone)."""
+    """Decoder-only LM families (dense / moe / ssm / hybrid / vlm
+    backbone)."""
 
     def __init__(self, cfg: ArchConfig):
         self.cfg = cfg
@@ -106,14 +109,18 @@ class Model:
 
     def cache_from_prefill(self, caches, cache_len: int):
         """Prefill caches (length S entries) -> decode caches of
-        ``cache_len``: padded on the length axis, or, where a local layer's
-        cache is shorter than the prompt, a ring holding the last ``ln``
-        positions at slot p % ln."""
+        ``cache_len``: attention entries padded on the length axis, or,
+        where a local layer's cache is shorter than the prompt, a ring
+        holding the last ``ln`` positions at slot p % ln; ssm/rec entries
+        pass through."""
         cfg = self.cfg
         out = []
         for (pat, _), gc in zip(T._pattern(cfg), caches):
             group = {}
             for li, kind in enumerate(pat):
+                if kind not in T.ATTN_KINDS:
+                    group[str(li)] = gc[str(li)]
+                    continue
                 k, v = gc[str(li)]
                 s = k.shape[2]
                 ln = cache_len
@@ -134,16 +141,52 @@ class Model:
         return out
 
 
-def build_model(cfg: ArchConfig) -> Model:
-    """A ``Model`` for a config whose every layer kind is ported; other
-    configs raise ``NotImplementedError`` naming ROADMAP.md queue A12."""
+class EncDecModel:
+    """Whisper-style encoder-decoder; ``frames`` [B, F, d] stand in for the
+    stubbed audio frontend. Like JAX's, it has no ``cache_from_prefill``
+    and its ``prefill`` needs ``batch["frames"]``, so ``serve()`` and the
+    launcher, which pass tokens only, fail on it with ``KeyError:
+    'frames'`` in both packages."""
+
+    def __init__(self, cfg: ArchConfig):
+        self.cfg = cfg
+
+    def init(self, generator: torch.Generator | None = None) -> nn.ModuleDict:
+        """Random params drawn from ``generator`` on its device; without
+        one, a generator seeded 0 on the card."""
+        if generator is None:
+            generator = torch.Generator(resolve_device(None)).manual_seed(0)
+        return ed.init_encdec(generator, self.cfg)
+
+    def loss_and_metrics(self, params, batch):
+        cfg = self.cfg
+        enc = ed.encode(cfg, params, batch["frames"])
+        logits, _ = ed.decode_fwd(cfg, params, batch["tokens"], enc,
+                                  want_cache=False)
+        loss = cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+        return loss, {"loss": loss, "aux": aux}
+
+    def prefill(self, params, batch):
+        cfg = self.cfg
+        enc = ed.encode(cfg, params, batch["frames"])
+        logits, caches = ed.decode_fwd(cfg, params, batch["tokens"], enc,
+                                       want_cache=True)
+        return logits[:, -1, :], caches
+
+    def decode_step(self, params, caches, tokens, pos):
+        """The self caches written in place; the cross K/V unchanged."""
+        self_c, cross_c = caches
+        logits, new_self = ed.decode_step(self.cfg, params, tokens, self_c,
+                                          cross_c, pos)
+        return logits, (new_self, cross_c)
+
+    def init_cache(self, batch: int, cache_len: int, device=None):
+        return ed.init_dec_cache(self.cfg, batch, cache_len,
+                                 L.dtype_of(self.cfg), resolve_device(device))
+
+
+def build_model(cfg: ArchConfig) -> Model | EncDecModel:
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family is not ported to "
-            f"repro_torch yet (ROADMAP.md queue A12)")
-    for pat, _ in T._pattern(cfg):
-        for kind in pat:
-            if kind not in T.PORTED_KINDS:
-                raise NotImplementedError(
-                    f"{cfg.name}: {T.unported(kind)}")
+        return EncDecModel(cfg)
     return Model(cfg)

@@ -1,20 +1,25 @@
-"""Decoder-only LM trunk: the port of ``repro.models.transformer`` for the
-trunk kinds ``"global"`` and ``"local"``.
+"""Decoder-only LM trunk: the port of ``repro.models.transformer``.
 
-Layer heterogeneity (gemma2's local/global alternation) is a group
-pattern, as in JAX: ``_pattern(cfg)`` gives [(group pattern, n_groups)]
-stacks. JAX stacks each position's params over the groups and scans them;
-here every layer is its own module, in one ``nn.ModuleList`` in JAX's
-layer order (stack s, group g, position li), and the trunk loops over
-them. Caches keep JAX's structure, a list per stack of ``{str(li): (k,
-v)}`` with each tensor [G, B, L, Kv, hd], so the two compare directly; a
-decode step writes its slot into them in place, as JAX's ``unroll=True``
-serving step does.
+Layer heterogeneity (gemma2's local/global alternation, Griffin's
+rec/rec/attn triples) is a group pattern, as in JAX: ``_pattern(cfg)``
+gives [(group pattern, n_groups)] stacks. JAX stacks each position's
+params over the groups and scans them; here every layer is its own
+module, in one ``nn.ModuleList`` in JAX's layer order (stack s, group g,
+position li), and the trunk loops over them. Caches keep JAX's structure,
+a list per stack of ``{str(li): (a, b)}`` with each tensor stacked over
+the stack's groups, so the two compare directly. A decode step writes
+into them in place, as JAX's ``unroll=True`` serving step does: an
+attention layer its k/v slot, a state layer its whole [g] entry.
 
 Layer kinds (cfg.family -> pattern, see ``_pattern``):
   "global"     pre-norm GQA attention (full causal) + MLP
   "local"      same with sliding-window mask
-  "moe", "ssm", "rec"   not ported yet (ROADMAP.md queue A12)
+  "moe"        attention + MoE FFN
+  "ssm"        mamba2 SSD mixer only (no MLP)
+  "rec"        RG-LRU temporal block + MLP
+Caches per kind: attention -> (k, v) [G,B,L,Kv,hd]; ssm -> (state
+[G,B,H,N,hd] f32, conv tail [G,B,K-1,din]); rec -> (h [G,B,d_lru] f32,
+conv tail [G,B,K-1,d_lru]).
 """
 from __future__ import annotations
 
@@ -23,18 +28,16 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru
+from repro_torch.models import ssm as ssm_mod
 
 # ----------------------------------------------------------------------------
 # patterns
 # ----------------------------------------------------------------------------
 _KIND_ALIASES = {"attn_local": "local", "attn": "global"}
-PORTED_KINDS = ("global", "local")
-
-
-def unported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"layer kind {kind!r} is not ported to repro_torch yet "
-        f"(ROADMAP.md queue A12)")
+ATTN_KINDS = ("global", "local", "moe")
+PORTED_KINDS = ATTN_KINDS + ("ssm", "rec")
 
 
 def _norm_kind(kind: str) -> str:
@@ -76,54 +79,91 @@ def layer_slots(cfg):
 # per-layer init / forward / decode
 # ----------------------------------------------------------------------------
 def _init_layer(gen, cfg, kind: str) -> nn.ModuleDict:
-    if kind not in PORTED_KINDS:
-        raise unported(kind)
     dev = gen.device
-    p = {"norm1": L.init_norm(cfg, cfg.d_model, dev),
-         "attn": attn.init_attn(gen, cfg),
-         "norm2": L.init_norm(cfg, cfg.d_model, dev),
-         "mlp": L.init_mlp(gen, cfg, cfg.d_model, cfg.d_ff)}
-    if cfg.sandwich_norm:
-        p["post1"] = L.init_norm(cfg, cfg.d_model, dev)
-        p["post2"] = L.init_norm(cfg, cfg.d_model, dev)
+    p = {"norm1": L.init_norm(cfg, cfg.d_model, dev)}
+    if kind in ATTN_KINDS:
+        p["attn"] = attn.init_attn(gen, cfg)
+        p["norm2"] = L.init_norm(cfg, cfg.d_model, dev)
+        if kind == "moe":
+            p["moe"] = moe_mod.init_moe(gen, cfg)
+        else:
+            p["mlp"] = L.init_mlp(gen, cfg, cfg.d_model, cfg.d_ff)
+        if cfg.sandwich_norm:
+            p["post1"] = L.init_norm(cfg, cfg.d_model, dev)
+            p["post2"] = L.init_norm(cfg, cfg.d_model, dev)
+    elif kind == "ssm":
+        p["ssm"] = ssm_mod.init_ssm(gen, cfg)
+    elif kind == "rec":
+        p["rec"] = rglru.init_rglru(gen, cfg)
+        p["norm2"] = L.init_norm(cfg, cfg.d_model, dev)
+        p["mlp"] = L.init_mlp(gen, cfg, cfg.d_model, cfg.d_ff)
+    else:
+        raise ValueError(kind)
     return nn.ModuleDict(p)
+
+
+def _ffn(cfg, kind, p, x):
+    """The attention kinds' second half: x + FFN(norm2(x)) (+ post2),
+    and the MoE aux loss (0.0 for an MLP)."""
+    h2 = L.apply_norm(cfg, p["norm2"], x)
+    aux = 0.0
+    if kind == "moe":
+        f, aux = moe_mod.apply_moe(cfg, p["moe"], h2)
+    else:
+        f = L.apply_mlp(cfg, p["mlp"], h2)
+    if cfg.sandwich_norm:
+        f = L.apply_norm(cfg, p["post2"], f)
+    return x + f, aux
 
 
 def _layer_fwd(cfg, kind, p, x, positions, *, want_cache: bool):
     """Full-sequence layer. Returns (x', cache_entry | None, aux_loss)."""
-    if kind not in PORTED_KINDS:
-        raise unported(kind)
     h = L.apply_norm(cfg, p["norm1"], x)
-    a, kvc = attn.attn_forward(cfg, p["attn"], h, positions,
-                               window=_layer_kind_window(cfg, kind))
-    if cfg.sandwich_norm:
-        a = L.apply_norm(cfg, p["post1"], a)
-    x = x + a
-    h2 = L.apply_norm(cfg, p["norm2"], x)
-    f = L.apply_mlp(cfg, p["mlp"], h2)
-    if cfg.sandwich_norm:
-        f = L.apply_norm(cfg, p["post2"], f)
-    x = x + f
-    return x, (kvc if want_cache else None), 0.0
+    aux = 0.0
+    if kind in ATTN_KINDS:
+        a, cache = attn.attn_forward(cfg, p["attn"], h, positions,
+                                     window=_layer_kind_window(cfg, kind))
+        if cfg.sandwich_norm:
+            a = L.apply_norm(cfg, p["post1"], a)
+        x, aux = _ffn(cfg, kind, p, x + a)
+    elif kind == "ssm":
+        y, state, conv = ssm_mod.apply_ssm(cfg, p["ssm"], h)
+        x, cache = x + y, (state, conv)
+    elif kind == "rec":
+        y, hlast, conv = rglru.apply_rglru(cfg, p["rec"], h)
+        x = x + y
+        x = x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
+        cache = (hlast, conv)
+    else:
+        raise ValueError(kind)
+    return x, (cache if want_cache else None), aux
 
 
 def _layer_decode(cfg, kind, p, x, cache, pos):
-    """One-token layer step. Returns (x', cache') with the cache written in
-    place."""
-    if kind not in PORTED_KINDS:
-        raise unported(kind)
+    """One-token layer step. Returns (x', cache'): an attention layer
+    writes its k/v slot into ``cache`` in place; a state layer returns new
+    tensors, as JAX's do, and ``trunk_decode`` copies them in."""
     h = L.apply_norm(cfg, p["norm1"], x)
-    ck, cv = cache
-    a, ck, cv = attn.attn_decode(cfg, p["attn"], h, ck, cv, pos,
-                                 window=_layer_kind_window(cfg, kind))
-    if cfg.sandwich_norm:
-        a = L.apply_norm(cfg, p["post1"], a)
-    x = x + a
-    h2 = L.apply_norm(cfg, p["norm2"], x)
-    f = L.apply_mlp(cfg, p["mlp"], h2)
-    if cfg.sandwich_norm:
-        f = L.apply_norm(cfg, p["post2"], f)
-    return x + f, (ck, cv)
+    if kind in ATTN_KINDS:
+        ck, cv = cache
+        a, ck, cv = attn.attn_decode(cfg, p["attn"], h, ck, cv, pos,
+                                     window=_layer_kind_window(cfg, kind))
+        if cfg.sandwich_norm:
+            a = L.apply_norm(cfg, p["post1"], a)
+        x, _ = _ffn(cfg, kind, p, x + a)
+        return x, (ck, cv)
+    if kind == "ssm":
+        state, conv = cache
+        y, state, conv = ssm_mod.apply_ssm_decode(cfg, p["ssm"], h, state,
+                                                  conv)
+        return x + y, (state, conv)
+    if kind == "rec":
+        hr, conv = cache
+        y, hr, conv = rglru.apply_rglru_decode(cfg, p["rec"], h, hr, conv)
+        x = x + y
+        x = x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
+        return x, (hr, conv)
+    raise ValueError(kind)
 
 
 # ----------------------------------------------------------------------------
@@ -162,8 +202,8 @@ def trunk_fwd(cfg, params, x, positions, *, want_cache: bool):
     x = L.apply_norm(cfg, params["final_norm"], x)
     if not want_cache:
         return x, None, aux_total
-    caches = [{li: (torch.stack([k for k, _ in es]),
-                    torch.stack([v for _, v in es]))
+    caches = [{li: (torch.stack([a for a, _ in es]),
+                    torch.stack([b for _, b in es]))
                for li, es in group.items()} for group in per]
     return x, caches, aux_total
 
@@ -176,8 +216,11 @@ def trunk_decode(cfg, params, x, caches, pos):
     caches), the caches written in place (group g of a stack reads and
     writes its [g] view)."""
     for si, g, li, kind, p in _walk(cfg, params):
-        ck, cv = caches[si][str(li)]
-        x, _ = _layer_decode(cfg, kind, p, x, (ck[g], cv[g]), pos)
+        ca, cb = caches[si][str(li)]
+        x, (na, nb) = _layer_decode(cfg, kind, p, x, (ca[g], cb[g]), pos)
+        if kind not in ATTN_KINDS:
+            ca[g].copy_(na)
+            cb[g].copy_(nb)
     x = L.apply_norm(cfg, params["final_norm"], x)
     return x, caches
 
@@ -187,18 +230,30 @@ def trunk_decode(cfg, params, x, caches, pos):
 # ----------------------------------------------------------------------------
 def init_cache(cfg, batch: int, cache_len: int, dtype, device):
     """Zeroed decode caches matching trunk_decode's expectations."""
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
     caches = []
     for (pat, n_groups) in _pattern(cfg):
         group = {}
         for li, kind in enumerate(pat):
-            if kind not in PORTED_KINDS:
-                raise unported(kind)
-            ln = cache_len
-            if kind == "local" and cfg.sliding_window:
-                ln = min(cache_len, _window_cache_len(cfg, cache_len))
-            shape = (n_groups, batch, ln, cfg.n_kv, cfg.hd)
-            group[str(li)] = (torch.zeros(shape, dtype=dtype, device=device),
-                              torch.zeros(shape, dtype=dtype, device=device))
+            if kind in ATTN_KINDS:
+                ln = cache_len
+                if kind == "local" and cfg.sliding_window:
+                    ln = min(cache_len, _window_cache_len(cfg, cache_len))
+                shape = (n_groups, batch, ln, cfg.n_kv, cfg.hd)
+                group[str(li)] = (zeros(shape), zeros(shape))
+            elif kind == "ssm":
+                din, nh, hd, n = ssm_mod._dims(cfg)
+                group[str(li)] = (
+                    zeros((n_groups, batch, nh, n, hd), torch.float32),
+                    zeros((n_groups, batch, cfg.ssm_conv - 1, din)))
+            elif kind == "rec":
+                group[str(li)] = (
+                    zeros((n_groups, batch, cfg.d_lru), torch.float32),
+                    zeros((n_groups, batch, cfg.ssm_conv - 1, cfg.d_lru)))
+            else:
+                raise ValueError(kind)
         caches.append(group)
     return caches
 

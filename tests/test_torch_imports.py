@@ -38,7 +38,8 @@ def test_no_source_file_imports_jax_or_the_jax_package():
             "parallel/collectives.py", "configs/base.py",
             "configs/qwen2_1_5b.py", "models/layers.py",
             "models/attention.py", "models/transformer.py",
-            "models/model.py", "launch/serve.py"} <= names
+            "models/model.py", "launch/serve.py", "models/moe.py",
+            "models/ssm.py", "models/rglru.py", "models/encdec.py"} <= names
     for f in files:
         bad = _imported_roots(f) & set(FORBIDDEN)
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
@@ -63,6 +64,8 @@ def test_importing_the_port_loads_no_jax_module():
         "import repro_torch.parallel.sharding\n"
         "import repro_torch.parallel.collectives\n"
         "import repro_torch.configs, repro_torch.models.model\n"
+        "import repro_torch.models.moe, repro_torch.models.ssm\n"
+        "import repro_torch.models.rglru, repro_torch.models.encdec\n"
         "import repro_torch.runtime.serve_loop, repro_torch.launch.serve\n"
         "from repro_torch.configs import ARCHS, get_config\n"
         "[get_config(a) for a in ARCHS]\n"

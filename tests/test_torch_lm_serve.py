@@ -8,8 +8,10 @@ queries over every container shape, and ``clients=`` on
 ``pump`` hands to ``handle_crash``). In each: the generated tokens, every
 ``ServeStats`` field but the wall clock, ``get_metrics`` outside timings,
 the tracing metrics and the span names are equal. Also the ``clients=``
-``RuntimeError`` without a pool, per-serve deltas across two calls, and
-``repro_torch.launch.serve`` printing JAX's launcher's graph-side lines."""
+``RuntimeError`` without a pool, per-serve deltas across two calls,
+``repro_torch.launch.serve`` printing JAX's launcher's graph-side lines
+for the default arch and for each MoE, SSM and RG-LRU config, and both
+launchers failing on whisper-base for want of ``frames``."""
 import itertools
 import sys
 
@@ -37,6 +39,14 @@ from repro_torch.obs.metrics import GLOBAL as TGLOBAL
 from repro_torch.runtime import fault as tfault
 from repro_torch.runtime.serve_loop import GraphCoServer as TServer
 from repro_torch.runtime.serve_loop import serve
+from torch_jax_isolation import clear_traced_only_jits
+
+
+def teardown_module():
+    # JAX ran under trace.capture() here: leave its traced-only jit
+    # caches as a fresh worker has them (tests/torch_jax_isolation.py)
+    clear_traced_only_jits()
+
 
 ARCH = "olmo-1b"
 WALL_STATS = ("wall_s",)
@@ -296,3 +306,32 @@ def test_launcher_defaults_to_the_card_without_a_fallback():
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch.main(["--ingest"])
+
+
+@pytest.mark.parametrize("arch", ("granite-moe-3b-a800m", "olmoe-1b-7b",
+                                  "mamba2-780m", "recurrentgemma-9b"))
+def test_launcher_serves_each_decoder_family_as_jax(arch, capsys,
+                                                    monkeypatch):
+    """``--arch`` of each MoE, SSM and RG-LRU config (smoke width) on the
+    CPU: the port's launcher prints the JAX launcher's graph-side lines."""
+    assert launch.main(["--arch", arch, "--device", "cpu", "--smoke",
+                        "--ingest"]) == 0
+    port = capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", arch, "--smoke",
+                                      "--ingest"])
+    jax_launch.main()
+    want = capsys.readouterr().out
+    assert _graph_lines(port) == _graph_lines(want)
+    assert port.startswith("decoded 128 tokens")
+
+
+def test_both_launchers_fail_on_whisper_for_want_of_frames(monkeypatch):
+    """JAX's ``EncDecModel.prefill`` needs ``frames``, which ``serve()``
+    never passes; the port adds no frames path JAX lacks, and fails as it
+    does."""
+    with pytest.raises(KeyError, match="frames"):
+        launch.main(["--arch", "whisper-base", "--device", "cpu", "--smoke"])
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", "whisper-base",
+                                      "--smoke"])
+    with pytest.raises(KeyError, match="frames"):
+        jax_launch.main()

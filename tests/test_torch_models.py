@@ -7,7 +7,8 @@ numpy-seeded tokens. Held: ``forward`` logits, ``prefill``'s last logits
 and caches, ``cache_from_prefill`` above and below the prompt (the ring
 of gemma2's local layers), 8 teacher-forced ``decode_step``s past the
 window, and ``loss_and_metrics``; one bf16 case; the configs field for
-field; the unported families' errors; the port's own init."""
+field; every config building on ported layer kinds; the port's own init.
+The other families are held in tests/test_torch_lm_families.py."""
 import dataclasses
 import functools
 
@@ -25,8 +26,6 @@ from repro_torch.models import transformer as TT
 from repro_torch.models.model import build_model
 
 DENSE = ("qwen2-1.5b", "qwen3-4b", "olmo-1b", "gemma2-27b", "internvl2-76b")
-UNPORTED = ("granite-moe-3b-a800m", "olmoe-1b-7b", "mamba2-780m",
-            "recurrentgemma-9b", "whisper-base")
 # f32 on both sides; the two differ only in the order of float sums
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, S, P = 2, 32, 24          # batch, tokens, prompt of the bf16 decode
@@ -203,15 +202,23 @@ def test_configs_equal_jax_field_for_field(arch):
     assert list(TC.all_cells()) == list(JC.all_cells())
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise_naming_queue_a12(arch):
-    cfg = TC.get_config(arch).smoke()
-    with pytest.raises(NotImplementedError, match="A12"):
-        build_model(cfg)
-    kinds = {k for pat, _ in TT._pattern(cfg) for k in pat}
-    for kind in kinds - set(TT.PORTED_KINDS):
-        with pytest.raises(NotImplementedError, match="A12"):
-            TT._init_layer(torch.Generator(), cfg, kind)
+@pytest.mark.parametrize("arch", sorted(JC.ARCHS))
+def test_every_config_builds_on_ported_kinds(arch):
+    """Each config builds the model class JAX builds for it, and every
+    layer kind of its pattern (or the encoder-decoder) is ported."""
+    from repro_torch.models.model import EncDecModel, Model
+
+    for cfg in (TC.get_config(arch), TC.get_config(arch).smoke()):
+        model = build_model(cfg)
+        assert type(model).__name__ == type(jax_build(cfg)).__name__
+        if cfg.family == "encdec":
+            assert isinstance(model, EncDecModel)
+            assert cfg.enc_layers and cfg.n_layers
+            continue
+        assert isinstance(model, Model)
+        kinds = {k for pat, _ in TT._pattern(cfg) for k in pat}
+        assert kinds <= set(TT.PORTED_KINDS)
+    assert set(TT.PORTED_KINDS) == {"global", "local", "moe", "ssm", "rec"}
 
 
 @pytest.mark.parametrize("arch", DENSE)

@@ -22,6 +22,14 @@ from repro.runtime.serve_loop import ServeStats as JServeStats
 from repro_torch.runtime.ingest import IngestPool as TPool
 from repro_torch.runtime.ingest import IngestStats as TIngestStats
 from repro_torch.runtime.serve_loop import ServeStats as TServeStats
+from torch_jax_isolation import clear_traced_only_jits
+
+
+def teardown_module():
+    # JAX ran under trace.capture() here: leave its traced-only jit
+    # caches as a fresh worker has them (tests/torch_jax_isolation.py)
+    clear_traced_only_jits()
+
 
 ROOT = Path(__file__).resolve().parents[1]
 

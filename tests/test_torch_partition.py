@@ -48,6 +48,14 @@ from repro_torch.obs import trace
 from repro_torch.obs.metrics import global_registry
 from repro_torch.parallel.sharding import graph_state_specs
 from repro_torch.runtime.fault import FaultInjector as TFault
+from torch_jax_isolation import clear_traced_only_jits
+
+
+def teardown_module():
+    # JAX ran under trace.capture() here: leave its traced-only jit
+    # caches as a fresh worker has them (tests/torch_jax_isolation.py)
+    clear_traced_only_jits()
+
 
 KNOBS = dict(alpha=4, beta=8)          # low enough that pull supersteps run
 STAGES = ["wal-append", "wal-fsync", "ckpt-mid-write", "post-publish-pre-ack"]

@@ -54,6 +54,14 @@ from repro_torch.testing.schedules import (check_recovery_equivalent,
                                            check_trace_linearizable,
                                            host_fields)
 from repro_torch.testing.schedules import run_schedule as trun
+from torch_jax_isolation import clear_traced_only_jits
+
+
+def teardown_module():
+    # JAX ran under trace.capture() here: leave its traced-only jit
+    # caches as a fresh worker has them (tests/torch_jax_isolation.py)
+    clear_traced_only_jits()
+
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = {"device": "cpu"}

@@ -35,6 +35,14 @@ from repro_torch.obs.metrics import GLOBAL as TGLOBAL
 from repro_torch.runtime import fault as tfault
 from repro_torch.runtime.ingest import IngestPool as TPool
 from repro_torch.runtime.serve_loop import GraphCoServer as TServer
+from torch_jax_isolation import clear_traced_only_jits
+
+
+def teardown_module():
+    # JAX ran under trace.capture() here: leave its traced-only jit
+    # caches as a fresh worker has them (tests/torch_jax_isolation.py)
+    clear_traced_only_jits()
+
 
 ROOT = Path(__file__).resolve().parents[1]
 WALL = ("ingest.wait_s", "ingest.wait_max_s")
