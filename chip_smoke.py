@@ -257,6 +257,32 @@ Phases (each prints lines; the last line is the JSON result):
      the lines phase 11 (c) requires; (d) the device idle share of one
      decode step of each served family (phase 5's ``profiled``), and each
      family's peak device memory
+ 13. the LM training path: qwen2-1.5b at its published width (phase 11's
+     config, params from a seeded ``torch.Generator`` on the card); (a)
+     ``repro_torch.runtime.train_loop.train`` on ``GraphPathData(seed=0)``
+     with its graph on the card (every example's ``get_path`` runs B2:
+     with 24 live vertices the direction test picks pull throughout, as
+     in JAX), B = 8, S = 512, 6 steps,
+     remat, lr 3e-4, one checkpoint at the last step under
+     ``build/chip_smoke_train/`` (the phase fails, naming the free space,
+     when the disk holds less than it needs): every loss finite, B2
+     launched inside ``train()`` (``lm_train_launches`` in the kernels
+     line); printed: the losses, the step wall median and p90 after the
+     first step beside its bound (6 N T plus the causal attention products
+     at the bf16 peak, against the optimizer's traffic), tokens/s, each
+     batch's generation time, the checkpoint's bytes and save wall beside
+     the directory's filesystem type, peak device memory; (b)
+     ``Checkpointer.restore`` of that directory (JAX's stacked layout)
+     equals the params, moments and step in memory bit for bit; the device
+     idle share of one more train step (batch, step and loss read; phase
+     5's ``profiled``); (c) at smoke width in f32 and bf16, a
+     ``SimulatedFailure`` at step 3 of 6 and a resumed ``train()`` against
+     an uninterrupted run within RESUME_TOL; (d) one ``make_train_step`` of
+     the trunk kinds "moe" (granite-moe-3b-a800m), "ssm" (mamba2-780m) and
+     "rec" (recurrentgemma-9b) at smoke shapes (f32) on the card against
+     the same step on the CPU, within TRAIN_KIND_RTOL / TRAIN_KIND_GTOL;
+     (e) ``python -m repro_torch.launch.train --arch qwen2-1.5b --smoke
+     --data graph --steps 8`` exits 0 with its ``done; final loss`` line
 
 It imports nothing of JAX and nothing of the JAX package. It exits non-zero
 without a result when no CUDA device is present or the port is missing.
@@ -385,6 +411,28 @@ FAMILY_F32_TOL = {"mamba2-780m": (LM_TOL, 0.0)}
 FAMILY_SERVED = ("olmoe-1b-7b", "mamba2-780m", "recurrentgemma-9b")
 FAMILY_NEW = 32              # phase 12's greedy and serve() decode steps
 FAMILY_CHILD = "mamba2-780m"
+# phase 13: the LM training path, qwen2-1.5b at its published width
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 512, 6, 3e-4
+TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
+TRAIN_NEED_BYTES = 24 << 30     # the 15.4 GB checkpoint and the child's
+BF16_PEAK_OPS_PER_S = 989e12    # bf16 tensor cores, dense
+# (c): crash at step 3 of 6 with a checkpoint every 2 steps, at smoke width
+# on GraphPathData(n_vertices=8); the resumed run against an uninterrupted
+# one. f32: 1% of one lr = 1e-3 Adam step; bf16: an Adam step moves an
+# element by ~lr, so a last-update direction or rounding that a
+# non-deterministic reduction moves shifts it by up to 2 lr plus one bf16
+# ulp (2**-8 of |p| <= 0.5)
+RESUME_STEPS, RESUME_CRASH, RESUME_EVERY, RESUME_LR = 6, 3, 2, 1e-3
+RESUME_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (4e-3, 1e-2)}  # params, loss
+# (d): one train step of each trainable trunk kind, card against CPU, f32:
+# loss within TRAIN_KIND_RTOL, each first-moment (gradient) leaf within
+# TRAIN_KIND_GTOL of its max, each param within 1e-5 except where the first
+# Adam step's direction is undetermined (|g| within TRAIN_KIND_GTOL of 0:
+# up to 2.2 lr)
+TRAIN_KINDS = {"moe": "granite-moe-3b-a800m", "ssm": "mamba2-780m",
+               "rec": "recurrentgemma-9b"}
+TRAIN_KIND_RTOL, TRAIN_KIND_GTOL = 1e-4, 1e-3
+TRAIN_CHILD_STEPS = 8
 CLOSURE_SCALE, CLOSURE_CAPACITY, CLOSURE_Q = 12, 4160, 256
 COMPLETE_SCALE, COMPLETE_CAPACITY, COMPLETE_PAIRS = 10, 1088, 1024
 WIDE_QS = (1024, 1025)       # the index closures' Q, and a ragged group
@@ -3376,6 +3424,321 @@ def phase_lm_families(torch, rng, card, seed: int):
     return total
 
 
+# ----------------------------------------------------------------------------
+# Phase 13: the LM training path at qwen2-1.5b's full width
+# ----------------------------------------------------------------------------
+def same_bits(torch, a, b) -> bool:
+    return torch.equal(a.detach().contiguous().view(torch.uint8),
+                       b.detach().contiguous().view(torch.uint8))
+
+
+def train_bound(cfg, n_params: int, b: int, s: int):
+    """(bound ms, flops, bytes) of one train step: the matmul work of a
+    forward and a backward (6 N T over the params N and tokens T, plus the
+    causal attention products, 6 B H S^2 hd a layer), at the bf16 peak,
+    against the optimizer's traffic (params and grads in bf16 and the f32
+    moments read, params and moments written) at HBM_BYTES_PER_S."""
+    t = b * s
+    flops = 6 * n_params * t + 6 * cfg.n_layers * b * cfg.n_heads * s * s \
+        * cfg.hd
+    nbytes = n_params * (2 + 2 + 8 + 2 + 8)
+    ms = max(flops / BF16_PEAK_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    return ms, flops, nbytes
+
+
+def resume_check(torch, cfg):
+    """(c): a crash at step RESUME_CRASH and a resumed ``train()`` against
+    an uninterrupted run, on the card at smoke width. Returns (max |param
+    diff|, |loss diff|, bitwise)."""
+    from repro_torch.checkpoint import checkpointer as ckpt_mod
+    from repro_torch.data.pipeline import GraphPathData
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.train_loop import (SimulatedFailure,
+                                                TrainLoopConfig, train)
+
+    model = build_model(cfg)
+
+    def run(name, **kw):
+        params = model.init(torch.Generator(DEVICE).manual_seed(0))
+        tl = TrainLoopConfig(total_steps=RESUME_STEPS,
+                             checkpoint_every=RESUME_EVERY, log_every=1,
+                             checkpoint_dir=str(TRAIN_DIR / name),
+                             lr=RESUME_LR, **kw)
+        return train(model, GraphPathData(n_vertices=8, seed=0,
+                                          device=DEVICE),
+                     batch_size=2, seq_len=96, cfg=tl, params=params,
+                     log=lambda *_: None)
+
+    whole, _, h0 = run(f"whole_{cfg.dtype}")
+    try:
+        run(f"crash_{cfg.dtype}", simulate_failure_at=RESUME_CRASH)
+        raise AssertionError("simulate_failure_at did not raise")
+    except SimulatedFailure:
+        pass
+    # the crashed run's last checkpoint writer is still running in this
+    # process (a kill -9 would have ended it): let it publish, so that the
+    # resume starts from its step and not, by a race, from scratch
+    t0 = time.monotonic()
+    while ckpt_mod._live_tmp and time.monotonic() - t0 < 60:
+        time.sleep(0.01)
+    resumed, _, h1 = run(f"crash_{cfg.dtype}")
+    if [s for s, _, _ in h1] != list(range(RESUME_CRASH, RESUME_STEPS + 1)):
+        raise AssertionError(f"resumed at the wrong step: {h1}")
+    dp = max(float((a.detach().float() - b.detach().float()).abs().max())
+             for a, b in zip(whole.parameters(), resumed.parameters(),
+                             strict=True))
+    dl = abs(h0[-1][1] - h1[-1][1])
+    bitwise = all(same_bits(torch, a, b) for a, b in
+                  zip(whole.parameters(), resumed.parameters(), strict=True))
+    ptol, ltol = RESUME_TOL[cfg.dtype]
+    if not (np.isfinite([l for _, l, _ in h0 + h1]).all() and dp <= ptol
+            and dl <= ltol):
+        raise AssertionError(f"{cfg.dtype} resume: params {dp} (tol {ptol}), "
+                             f"loss {dl} (tol {ltol})")
+    return dp, dl, bitwise
+
+
+def kind_step_check(torch, arch, rng, seed: int):
+    """(d): one ``make_train_step`` step of ``arch``'s smoke config (f32) on
+    the card against the same step on the CPU, from the same params and
+    tokens. Returns (loss rel diff, worst first-moment error / leaf max,
+    params off by more than 1e-5, params checked)."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.launch import steps
+    from repro_torch.models.model import build_model
+
+    cfg = get_config(arch).smoke()
+    model = build_model(cfg)
+    host = model.init(torch.Generator("cpu").manual_seed(seed))
+    card = lm_params_from_numpy(cfg, lm_params_to_numpy(cfg, host),
+                                device=DEVICE)
+    toks = rng.integers(0, cfg.vocab, (2, 32)).astype(np.int32)
+    out = {}
+    for where, params in (("cpu", host), (DEVICE, card)):
+        step = steps.make_train_step(model, lr=RESUME_LR, remat=True)
+        p, st, m = step(params, steps.init_opt_state(params),
+                        {"tokens": torch.from_numpy(toks).to(where)})
+        out[where] = (float(m["loss"]), dict(p.named_parameters()), st.mu)
+    (lh, ph, mh), (lc, pc, mc) = out["cpu"], out[DEVICE]
+    dl = abs(lc - lh) / abs(lh)
+    gerr, off, total = 0.0, 0, 0
+    for name, m in mh.items():
+        scale = max(float(m.abs().max()), 1e-30)
+        gerr = max(gerr, float((mc[name].cpu() - m).abs().max()) / scale)
+        d = (pc[name].detach().cpu().float() - ph[name].detach().float()).abs()
+        loose = m.abs() <= TRAIN_KIND_GTOL * scale
+        bad = d > torch.where(loose, 2.2 * RESUME_LR, 1e-5)
+        if bad.any():
+            raise AssertionError(f"{arch} step: {int(bad.sum())} params of "
+                                 f"{name} off by up to {float(d.max())}")
+        off += int((d > 1e-5).sum())
+        total += d.numel()
+    if dl > TRAIN_KIND_RTOL or gerr > TRAIN_KIND_GTOL:
+        raise AssertionError(f"{arch} step on the card against the CPU: "
+                             f"loss {dl}, gradients {gerr}")
+    return dl, gerr, off, total
+
+
+def phase_train(torch, rng, card, seed: int):
+    """Phase 13: the LM training path at qwen2-1.5b's full width (module
+    docstring). Returns the launches counted inside ``train()``
+    (``lm_train_launches``)."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.convert import from_jax_tree
+    from repro_torch.data.pipeline import GraphPathData
+    from repro_torch.launch import steps
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.train_loop import (TrainLoopConfig, meta_stack,
+                                                train, train_tree)
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    TRAIN_DIR.mkdir(parents=True)
+    free = shutil.disk_usage(TRAIN_DIR).free
+    if free < TRAIN_NEED_BYTES:
+        raise AssertionError(
+            f"phase 13 needs {TRAIN_NEED_BYTES / 1e9:.1f} GB free under "
+            f"{TRAIN_DIR}, the disk has {free / 1e9:.1f} GB")
+    fs = fs_of(TRAIN_DIR)
+    sync(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    cfg = get_config(LM_ARCH)
+    shape = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd,
+             cfg.d_ff, cfg.vocab, cfg.dtype, cfg.tie_embeddings)
+    if LM_SMOKE:                      # a rehearsal on the CPU
+        cfg = cfg.smoke()
+    elif shape != (28, 1536, 12, 2, 128, 8960, 151936, "bfloat16", True):
+        raise AssertionError(f"{LM_ARCH} is not at its published width: "
+                             f"{shape}")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(DEVICE).manual_seed(seed))
+    n_params = sum(p.numel() for p in params.parameters())
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+
+    # (a) train() on GraphPathData, a checkpoint at the last step only
+    data = GraphPathData(seed=0, device=DEVICE)
+    data_ms = []
+
+    class TimedData:
+        def batch(self, step, bs, sl):
+            sync(torch)
+            t0 = time.perf_counter()
+            out = data.batch(step, bs, sl)
+            sync(torch)
+            data_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+    marks = []
+
+    def mark(line):
+        marks.append((time.perf_counter(), line))
+
+    ckpt_dir = TRAIN_DIR / "full"
+    tl = TrainLoopConfig(total_steps=TRAIN_STEPS,
+                         checkpoint_every=TRAIN_STEPS, log_every=1,
+                         checkpoint_dir=str(ckpt_dir), lr=TRAIN_LR)
+    reset_counts()
+    t0 = time.perf_counter()
+    params, opt_state, hist = train(model, TimedData(), batch_size=b,
+                                    seq_len=s, cfg=tl, params=params,
+                                    log=mark)
+    sync(torch)
+    t_end = time.perf_counter()
+    launches = counts()
+    losses = [l for _, l, _ in hist]
+    if len(hist) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"train(): {hist}")
+    walls = [(marks[i][0] - marks[i - 1][0]) * 1e3
+             for i in range(1, len(marks))]
+    first_ms = (marks[0][0] - t0) * 1e3
+    med, p90 = statistics.median(walls), float(np.percentile(walls, 90))
+    save_s = t_end - marks[-1][0]
+    ck_bytes = dir_bytes(ckpt_dir)
+    bound_ms, flops, opt_bytes = train_bound(cfg, n_params, b, s)
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    log(f"LM train (a): {LM_ARCH} ({n_params:,} params, {cfg.dtype}) through "
+        f"train() on GraphPathData(seed=0) on the card, B {b} x S {s}, "
+        f"{TRAIN_STEPS} steps, remat, lr {TRAIN_LR}: losses "
+        + ", ".join(f"{l:.4f}" for l in losses)
+        + f"; first step {first_ms:.1f} ms; step wall median {med:.3f} ms, "
+        f"p90 {p90:.3f} ms over steps 2-{TRAIN_STEPS} ("
+        + ", ".join(f"{w:.1f}" for w in walls) + "); "
+        f"{b * s / med * 1e3:.1f} tokens/s; bound {bound_ms:.3f} ms ("
+        f"{flops / 1e12:.2f} TFLOP at {BF16_PEAK_OPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s, {opt_bytes / 1e9:.2f} GB of optimizer traffic at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), measured / bound "
+        f"{med / bound_ms:.1f}x; batch generation "
+        + ", ".join(f"{x:.1f}" for x in data_ms) + " ms; launches inside "
+        f"train() {launches}; peak device memory {peak / 1e9:.3f} GB above "
+        f"the phase's start; {card}")
+    log(f"LM train (a): checkpoint at step {TRAIN_STEPS}: {ck_bytes / 1e9:.3f} "
+        f"GB in {save_s:.2f} s ({ck_bytes / 1e6 / save_s:.0f} MB/s: stack, "
+        f"copy to the host, write and fsync every leaf); {fs}")
+    # the corpus's graphs hold 24 live vertices in 64 slots: the direction
+    # test picks pull (B2) at a GetPath's first superstep (1 x alpha = 32
+    # >= the unvisited) and keeps it while the frontier holds 64 / beta =
+    # 1 vertex, as JAX's does, so B3 (push) is not on this path
+    require_launched(launches, ("B2",), "inside train()")
+
+    # (b) the full-width checkpoint restores bit for bit
+    sync(torch)
+    t0 = time.perf_counter()
+    (tp, ts), manifest = Checkpointer(str(ckpt_dir)).restore(
+        train_tree(cfg, params, opt_state, stack=meta_stack),
+        device=DEVICE)
+    sync(torch)
+    restore_s = time.perf_counter() - t0
+    named = dict(params.named_parameters())
+    n_leaves = 0
+    for dst, tree in ((named, tp), (opt_state.mu, ts.mu),
+                      (opt_state.nu, ts.nu)):
+        for name, t in from_jax_tree(cfg, params, tree).items():
+            n_leaves += 1
+            if not same_bits(torch, t, dst[name]):
+                raise AssertionError(f"restored {name} differs")
+    if int(ts.step) != TRAIN_STEPS or manifest["step"] != TRAIN_STEPS:
+        raise AssertionError(f"restored step {int(ts.step)}")
+    del tp, ts
+    log(f"LM train (b): Checkpointer.restore of the step-{TRAIN_STEPS} "
+        f"directory ({manifest['n_leaves']} leaves in JAX's layout, "
+        f"{ck_bytes / 1e9:.3f} GB) in {restore_s:.2f} s "
+        f"({ck_bytes / 1e6 / restore_s:.0f} MB/s, read and copied to the "
+        f"card): all {n_leaves} of the port's leaves and the step equal the "
+        f"state in memory bit for bit; {fs}")
+
+    # the device idle share of one train step (batch, step, loss read)
+    step_fn = steps.make_train_step(model, lr=TRAIN_LR, remat=True)
+    state = [opt_state]
+
+    def one_step():
+        toks = data.batch(TRAIN_STEPS, b, s)
+        _, state[0], m = step_fn(params, state[0],
+                                 {"tokens": torch.from_numpy(toks).to(
+                                     DEVICE)})
+        float(m["loss"])
+
+    wall, trace_file = profiled(torch, one_step, "chip_smoke_lm_train_step")
+    busy, per_name = _busy_ms(trace_file)
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
+    log(f"profile lm_train_step: wall {wall:.3f} ms under the profiler, "
+        "device " + (f"busy {busy:.3f} ms (idle "
+                     f"{100 * (1 - busy / wall):.1f}%); "
+                     + "; ".join(f"{k} {v:.3f} ms" for k, v in top)
+                     if per_name else "busy not measured (no device "
+                     "events)"))
+    del params, opt_state, state, named
+    shutil.rmtree(ckpt_dir)
+    torch.cuda.empty_cache()
+
+    # (c) crash and resume at smoke width, f32 and bf16
+    for dtype in ("float32", "bfloat16"):
+        scfg = dataclasses.replace(get_config(LM_ARCH).smoke(), dtype=dtype)
+        dp, dl, bitwise = resume_check(torch, scfg)
+        ptol, ltol = RESUME_TOL[dtype]
+        log(f"LM train (c): {LM_ARCH} smoke {dtype}: a SimulatedFailure at "
+            f"step {RESUME_CRASH} of {RESUME_STEPS} (checkpoints every "
+            f"{RESUME_EVERY}), a second train() resumed from step "
+            f"{RESUME_CRASH - 1}: final params within {dp:.3g} (tol {ptol}) "
+            f"and loss within {dl:.3g} (tol {ltol}) of an uninterrupted run; "
+            f"bit for bit: {bitwise}")
+
+    # (d) a train step of each other trainable trunk kind, card against CPU
+    for kind, arch in TRAIN_KINDS.items():
+        dl, gerr, off, total = kind_step_check(torch, arch, rng, seed)
+        log(f"LM train (d): {kind} ({arch} smoke, f32) make_train_step on the "
+            f"card against the CPU: loss rel diff {dl:.3g} (tol "
+            f"{TRAIN_KIND_RTOL}), first moments within {gerr:.3g} of each "
+            f"leaf's max (tol {TRAIN_KIND_GTOL}); {off} of {total} params "
+            f"off by more than 1e-5, each where the gradient is within "
+            f"{TRAIN_KIND_GTOL} of 0")
+
+    # (e) the entry point as a subprocess
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           LM_ARCH, "--smoke", "--data", "graph", "--steps",
+           str(TRAIN_CHILD_STEPS), "--device", DEVICE, "--ckpt-dir",
+           str(TRAIN_DIR / "child")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=LM_CHILD_TIMEOUT_S,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    child_s = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or not lines or not lines[-1].startswith(
+            "done; final loss "):
+        raise AssertionError(f"repro_torch.launch.train: rc "
+                             f"{proc.returncode}; {proc.stdout[-2000:]} "
+                             f"{proc.stderr[-2000:]}")
+    log(f"LM train (e): python -m repro_torch.launch.train --arch {LM_ARCH} "
+        f"--smoke --data graph --steps {TRAIN_CHILD_STEPS}: rc 0 in "
+        f"{child_s:.1f} s; {lines[-1]}")
+    shutil.rmtree(TRAIN_DIR)
+    log(f"LM train: phase 13 {time.perf_counter() - t_phase:.1f} s; {card}")
+    return launches
+
+
 PROFILE_MARK = "measured"
 PROFILE_SETTLE_S = 0.005
 
@@ -4042,12 +4405,15 @@ def main(argv=None) -> int:
                            card, args.seed)
     fam_launches = phase_lm_families(
         torch, np.random.default_rng([args.seed, 10]), card, args.seed)
+    train_launches = phase_train(
+        torch, np.random.default_rng([args.seed, 11]), card, args.seed)
     for key, k in zip(KERNEL_META, kernels):
         k["serving_launches"] = slaunches[key]
         k["durable_launches"] = dur_launches[key]
         k["sharded_launches"] = sh_launches[key]
         k["lm_serve_launches"] = lm_launches[key]
         k["lm_family_launches"] = fam_launches[key]
+        k["lm_train_launches"] = train_launches[key]
     log(f"card: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -19,9 +19,15 @@ Trees are flattened with ``torch.utils._pytree``. A flat list of leaves
 (what the graph checkpointer saves) gets the manifest ``treedef`` JAX
 writes for it, ``PyTreeDef([*, *, ...])``, so a graph checkpoint's
 manifest equals the JAX package's apart from ``time``. ``restore`` places
-the leaves on the card unless the caller names another device. Sharded
-restores (``shardings=``, whose only JAX caller is the LM train loop) wait
-for ROADMAP.md queue A12.
+the leaves on the card unless the caller names another device.
+
+bfloat16 leaves are written as the JAX package writes them: ``np.save`` of
+ml_dtypes' bfloat16 gives the header descr ``'<V2'`` and the raw bits, and
+the manifest names the dtype ``bfloat16``. They are read back bit for bit
+through an int16 view (no ml_dtypes needed). The LM train loop saves its
+``(params, opt_state)`` in the JAX package's tree (``convert.jax_layout``),
+so either package resumes from the other's directory. Sharded restores
+(``shardings=``) are ROADMAP.md queue A12 (iv).
 """
 from __future__ import annotations
 
@@ -38,21 +44,77 @@ from torch.utils import _pytree as pytree
 from repro_torch.core.graph import resolve_device
 
 
+def _node_str(spec) -> str | None:
+    """JAX's ``PyTreeDef`` spelling of a tree of dicts (keys in JAX's
+    sorted order), lists, tuples and NamedTuples; None for any other."""
+    if spec.is_leaf():
+        return "*"
+    kids = [_node_str(c) for c in spec.children()]
+    if None in kids:
+        return None
+    if spec.type is dict:
+        if list(spec.context) != sorted(spec.context):
+            return None
+        return "{" + ", ".join(f"{k!r}: {v}"
+                               for k, v in zip(spec.context, kids)) + "}"
+    if spec.type is list:
+        return "[" + ", ".join(kids) + "]"
+    if spec.type is tuple:
+        return "(" + ", ".join(kids) + ("," if len(kids) == 1 else "") + ")"
+    if isinstance(spec.context, type) and issubclass(spec.context, tuple):
+        return (f"CustomNode(namedtuple[{spec.context.__name__}], ["
+                + ", ".join(kids) + "])")
+    return None
+
+
 def _treedef_str(spec) -> str:
-    """The manifest's ``treedef``: JAX's spelling for a flat list of
-    leaves, torch's ``TreeSpec`` text otherwise."""
-    if spec.type is list and all(c.is_leaf() for c in spec.children()):
-        return "PyTreeDef([" + ", ".join("*" * spec.num_children) + "])"
-    return str(spec)
+    """The manifest's ``treedef``: JAX's spelling where ``_node_str`` has
+    one, torch's ``TreeSpec`` text otherwise."""
+    node = _node_str(spec)
+    return str(spec) if node is None else f"PyTreeDef({node})"
 
 
-def _to_host(x) -> np.ndarray:
+def is_bf16_bits(a: np.ndarray) -> bool:
+    """A numpy array that holds bfloat16: ml_dtypes' type, or the raw bits
+    as a two-byte void (what ``np.load`` gives for a ``'<V2'`` file)."""
+    return a.dtype.name == "bfloat16" or (a.dtype.kind == "V"
+                                          and a.dtype.itemsize == 2)
+
+
+def to_host(x) -> np.ndarray:
     """A host copy the caller can no longer write: tensors through one
     synchronous copy (``copy=True`` also copies a CPU tensor, whose
-    ``.numpy()`` would share the caller's memory)."""
+    ``.numpy()`` would share the caller's memory), bfloat16 as its raw
+    bits in a two-byte void."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", copy=True).numpy()
+        t = x.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view("V2")
+        return t.numpy()
     return np.asarray(x)
+
+
+def _dtype_name(a: np.ndarray) -> str:
+    return "bfloat16" if is_bf16_bits(a) else str(a.dtype)
+
+
+def _save_npy(f, a: np.ndarray) -> None:
+    """``np.save``'s bytes; bfloat16 with the header JAX's leaves get."""
+    if not is_bf16_bits(a):
+        np.save(f, a)
+        return
+    np.lib.format.write_array_header_1_0(
+        f, {"descr": "<V2", "fortran_order": False, "shape": a.shape})
+    f.write(a.tobytes())
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A loaded leaf as a CPU tensor of its dtype, shape and bits."""
+    if not a.flags.c_contiguous:
+        a = np.ascontiguousarray(a)
+    if is_bf16_bits(a):
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _fsync_dir(path: str) -> None:
@@ -100,13 +162,13 @@ class Checkpointer:
         """
         self.wait()
         leaves, spec = pytree.tree_flatten(tree)
-        host_leaves = [_to_host(x) for x in leaves]   # device -> host now
+        host_leaves = [to_host(x) for x in leaves]    # device -> host now
         manifest = {
             "step": int(step),
             "treedef": _treedef_str(spec),
             "n_leaves": len(host_leaves),
             "shapes": [list(x.shape) for x in host_leaves],
-            "dtypes": [str(x.dtype) for x in host_leaves],
+            "dtypes": [_dtype_name(x) for x in host_leaves],
             "shard_hint": "host-gathered (single-process); per-shard on fleet",
             "extra": extra or {},
             "time": time.time(),
@@ -144,7 +206,7 @@ class Checkpointer:
         for i, leaf in enumerate(host_leaves):
             p = os.path.join(tmp, f"leaf_{i:06d}.npy")
             with open(p, "wb") as f:
-                np.save(f, leaf)
+                _save_npy(f, leaf)
                 f.flush()
                 os.fsync(f.fileno())
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -205,8 +267,8 @@ class Checkpointer:
         manifest)."""
         if shardings is not None:
             raise TypeError("Checkpointer.restore places leaves on one "
-                            "device: sharded restores (the LM train loop's) "
-                            "wait for ROADMAP.md queue A12")
+                            "device: sharded restores are ROADMAP.md queue "
+                            "A12 (iv)")
         dev = resolve_device(device)
         path, manifest = self._manifest(step)
         leaves_t, spec = pytree.tree_flatten(template)
@@ -218,10 +280,11 @@ class Checkpointer:
         for i, tmpl in enumerate(leaves_t):
             arr = np.load(os.path.join(path, f"leaf_{i:06d}.npy"))
             if isinstance(tmpl, torch.Tensor):
-                arr = arr.astype(torch.empty(0, dtype=tmpl.dtype).numpy().dtype)
-            elif hasattr(tmpl, "dtype"):
-                arr = arr.astype(tmpl.dtype)
-            out.append(torch.from_numpy(np.ascontiguousarray(arr)).to(dev))
+                t = _tensor(arr).to(tmpl.dtype)
+            else:
+                t = _tensor(arr.astype(tmpl.dtype) if hasattr(tmpl, "dtype")
+                            else arr)
+            out.append(t.to(dev))
         return pytree.tree_unflatten(out, spec), manifest
 
     def restore_raw(self, *, step: int | None = None

@@ -89,13 +89,44 @@ def _qscale(cfg):
     return cfg.query_scale if cfg.query_scale else cfg.hd ** -0.5
 
 
+def _bmm_acc(a, b):
+    """[N, M, K] @ [N, K, P] of bf16 / f16 inputs -> f32, accumulated in
+    f32 (on the CPU, where ``bmm``'s ``out_dtype`` overload has no kernel,
+    through an exact upcast)."""
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+class _BmmF32(torch.autograd.Function):
+    """``_bmm_acc`` with a gradient (``bmm``'s ``out_dtype`` overload has
+    none): dA = dY Bᵀ and dB = Aᵀ dY by the same product, dY cast to the
+    inputs' dtype and each result cast back to its input's."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _bmm_acc(a, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b = ctx.saved_tensors
+        dy = dy.to(a.dtype)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _bmm_acc(dy, b.transpose(1, 2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = _bmm_acc(a.transpose(1, 2), dy).to(b.dtype)
+        return da, db
+
+
 def _bmm_f32(a, b):
     """[N, M, K] @ [N, K, P] -> f32 [N, M, P], accumulated in f32."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return torch.bmm(a, b)
-    if a.is_cuda:
-        return torch.bmm(a, b, out_dtype=torch.float32)
-    return torch.bmm(a.float(), b.float())
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _BmmF32.apply(a, b)
+    return _bmm_acc(a, b)
 
 
 # ----------------------------------------------------------------------------

@@ -6,8 +6,9 @@ dicts are (``p["wq"]``, ``"bq" in p``), so a reader finds each leaf where
 JAX keeps it, and ``convert.lm_params_from_numpy`` fills them from a JAX
 tree. ``init_*`` draws from an explicit ``torch.Generator`` on the
 generator's device; the numbers differ from ``jax.random``'s, the
-distributions do not. No parameter asks for a gradient: training is not
-ported (ROADMAP.md queue A12).
+distributions do not. No parameter asks for a gradient at init: serving
+needs none, and the train step (``launch.steps.make_train_step``) turns
+gradients on for the params it is given.
 """
 from __future__ import annotations
 

@@ -10,10 +10,12 @@ The serving steps, as ``runtime.serve_loop.serve`` calls them:
 ``params`` is the ``nn.ModuleDict`` that ``init`` returns (or that
 ``convert.lm_params_from_numpy`` / ``encdec_params_from_numpy`` builds
 from a JAX tree); it lives on the device of the generator that drew it.
-``loss_and_metrics`` is the forward loss only: gradients, the optimizer
-and the training loop wait for ROADMAP.md queue A12 (iii). There is no
-activation-sharding hook: without a mesh JAX's is a no-op, and the LM
-half of ``parallel/`` is queue A12 (iii) too.
+``loss_and_metrics`` is what training differentiates
+(``launch.steps.make_train_step`` takes its gradients with autograd;
+``remat=True`` recomputes each group of the block pattern in the backward
+pass, as JAX's ``jax.checkpoint`` does). There is no activation-sharding
+hook: without a mesh JAX's is a no-op, and the LM half of ``parallel/`` is
+ROADMAP.md queue A12 (iv).
 """
 from __future__ import annotations
 
@@ -27,13 +29,18 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 
-def cross_entropy(logits, targets):
-    """logits: [B,S,V]; targets: [B,S] int -> mean negative
-    log-likelihood in f32."""
+def cross_entropy(logits, targets, mask=None):
+    """logits: [B,S,V]; targets: [B,S] int; mask: [B,S] or None -> mean
+    negative log-likelihood in f32, over the positions ``mask`` keeps (the
+    mean over at least one position: an all-zero mask gives 0)."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     tgt = torch.take_along_dim(lf, targets.long()[..., None], dim=-1)[..., 0]
-    return -(tgt - lse).mean()
+    ll = tgt - lse
+    if mask is None:
+        return -ll.mean()
+    m = mask.float()
+    return -(ll * m).sum() / torch.clamp(m.sum(), min=1.0)
 
 
 def params_device(params) -> torch.device:
@@ -65,7 +72,8 @@ class Model:
             x = torch.cat([vis, x], dim=1)
         return x
 
-    def forward(self, params, batch, *, want_cache=False, last_only=False):
+    def forward(self, params, batch, *, want_cache=False, remat=False,
+                last_only=False):
         """batch: {"tokens": int [B,S]} (+ "vis_embeds" [B,n_vis,d] for the
         stub patch embeddings) -> (f32 logits, caches | None, aux)."""
         cfg = self.cfg
@@ -73,7 +81,7 @@ class Model:
         s = x.shape[1]
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
         x, caches, aux = T.trunk_fwd(cfg, params["trunk"], x, positions,
-                                     want_cache=want_cache)
+                                     want_cache=want_cache, remat=remat)
         if cfg.n_vis_tokens:
             x = x[:, cfg.n_vis_tokens:, :]
         if last_only:
@@ -82,8 +90,8 @@ class Model:
         logits = L.unembed(cfg, params["embed"], x)
         return logits, caches, aux
 
-    def loss_and_metrics(self, params, batch):
-        logits, _, aux = self.forward(params, batch)
+    def loss_and_metrics(self, params, batch, *, remat=True):
+        logits, _, aux = self.forward(params, batch, remat=remat)
         tok = batch["tokens"]
         loss = cross_entropy(logits[:, :-1], tok[:, 1:]) + aux
         return loss, {"loss": loss, "aux": aux}
@@ -158,7 +166,8 @@ class EncDecModel:
             generator = torch.Generator(resolve_device(None)).manual_seed(0)
         return ed.init_encdec(generator, self.cfg)
 
-    def loss_and_metrics(self, params, batch):
+    def loss_and_metrics(self, params, batch, *, remat=True):
+        """``remat`` is accepted and unused, as in JAX."""
         cfg = self.cfg
         enc = ed.encode(cfg, params, batch["frames"])
         logits, _ = ed.decode_fwd(cfg, params, batch["tokens"], enc,

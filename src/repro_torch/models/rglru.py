@@ -75,13 +75,14 @@ def _conv(p, u, tail=None):
 def linear_scan(a, b):
     """h_t = a_t h_{t-1} + b_t along dim 1 from h_{-1} = 0, by doubling:
     after round r every position holds the composition of the 2^(r+1)
-    steps ending at it."""
-    a, b = a.clone(), b.clone()
+    steps ending at it. Each round builds new tensors (autograd keeps the
+    old ones for the backward pass)."""
     shift = 1
     while shift < a.shape[1]:
         # (a1, b1) then (a2, b2) compose to (a1 a2, b1 a2 + b2)
-        b[:, shift:] = b[:, :-shift] * a[:, shift:] + b[:, shift:]
-        a[:, shift:] = a[:, :-shift] * a[:, shift:]
+        b = torch.cat([b[:, :shift],
+                       b[:, :-shift] * a[:, shift:] + b[:, shift:]], dim=1)
+        a = torch.cat([a[:, :shift], a[:, :-shift] * a[:, shift:]], dim=1)
         shift *= 2
     return b
 

@@ -99,7 +99,8 @@ def apply_ssm(cfg, p, x):
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
     att = torch.exp(torch.where(tri, li, -math.inf))
     del li
-    att *= (cc @ bc.transpose(-1, -2))[:, :, None]              # C_i . B_j
+    # out of place: autograd keeps the exp's output for its backward pass
+    att = att * (cc @ bc.transpose(-1, -2))[:, :, None]         # C_i . B_j
     y = att @ (xc * dtc[..., None])                             # [B,nc,H,Q,hd]
     del att
 

@@ -23,8 +23,11 @@ conv tail [G,B,K-1,d_lru]).
 """
 from __future__ import annotations
 
+import itertools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
@@ -188,17 +191,36 @@ def _walk(cfg, params):
 # ----------------------------------------------------------------------------
 # trunk forward (prefill / training forward)
 # ----------------------------------------------------------------------------
-def trunk_fwd(cfg, params, x, positions, *, want_cache: bool):
+def trunk_fwd(cfg, params, x, positions, *, want_cache: bool,
+              remat: bool = False):
     """x: [B,S,d] -> (x', caches per stack (stacked over groups) | None,
-    aux)."""
+    aux).
+
+    ``remat=True`` recomputes each group of the block pattern in the
+    backward pass: only a group's input is saved, as JAX's
+    ``jax.checkpoint(..., nothing_saveable)`` of each scanned group saves
+    only the scan carry."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     per = [{} for _ in _pattern(cfg)]      # stack -> str(li) -> [entries]
-    for si, _, li, kind, p in _walk(cfg, params):
-        x, cache, a = _layer_fwd(cfg, kind, p, x, positions,
-                                 want_cache=want_cache)
-        aux_total = aux_total + a
+    for (si, _), members in itertools.groupby(_walk(cfg, params),
+                                              key=lambda e: e[:2]):
+        def group_fwd(x, aux, members=tuple(members)):
+            caches = []
+            for _, _, li, kind, p in members:
+                x, cache, a = _layer_fwd(cfg, kind, p, x, positions,
+                                         want_cache=want_cache)
+                aux = aux + a
+                caches.append((li, cache))
+            return x, aux, caches
+
+        if remat:
+            x, aux_total, caches = checkpoint(group_fwd, x, aux_total,
+                                              use_reentrant=False)
+        else:
+            x, aux_total, caches = group_fwd(x, aux_total)
         if want_cache:
-            per[si].setdefault(str(li), []).append(cache)
+            for li, cache in caches:
+                per[si].setdefault(str(li), []).append(cache)
     x = L.apply_norm(cfg, params["final_norm"], x)
     if not want_cache:
         return x, None, aux_total

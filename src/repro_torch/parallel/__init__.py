@@ -7,6 +7,7 @@ graph half of ``repro.parallel`` (DESIGN.md §8).
                ``pmin``, ``pmax`` over a list of per-shard tensors
 
 The LM half (parameter, batch and cache specs, activation hooks,
-``psum_hierarchical``) waits for the LM stack (ROADMAP.md queue A12).
+``psum_hierarchical``) is not on the one-card training path, whose JAX
+``train()`` runs without a mesh; it is ROADMAP.md queue A12 (iv).
 """
 from repro_torch.parallel import collectives, sharding  # noqa: F401
