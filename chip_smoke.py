@@ -282,7 +282,32 @@ Phases (each prints lines; the last line is the JSON result):
      "rec" (recurrentgemma-9b) at smoke shapes (f32) on the card against
      the same step on the CPU, within TRAIN_KIND_RTOL / TRAIN_KIND_GTOL;
      (e) ``python -m repro_torch.launch.train --arch qwen2-1.5b --smoke
-     --data graph --steps 8`` exits 0 with its ``done; final loss`` line
+     --data graph --steps 8`` exits 0 with its ``done; final loss`` line;
+     the step-6 checkpoint stays for phase 14
+ 14. the LM mesh on DTensor: (a) ``Checkpointer.restore(shardings=)`` of
+     phase 13's checkpoint onto the (1, 1) ("data", "model") mesh of
+     ``launch.mesh.make_host_mesh`` (a one-process nccl group), every
+     leaf's local tensor equal to its file bit for bit; then
+     ``train(mesh=, shardings=)`` resumed from that checkpoint for 4 steps
+     at qwen2-1.5b's full width on ``GraphPathData(seed=0)`` (B2 inside
+     every batch; the step pins each gradient, ``make_train_step(
+     grad_specs=)``) and the same 4 steps without a mesh: losses and
+     params equal bit for bit, else the differing leaves printed and the
+     loss held within MESH_LOSS_RTOL; B2 launched inside ``train(mesh=)``
+     (``mesh_launches`` in the kernels line, with (b) and (c)); the step
+     wall median, tokens/s and peak memory of both runs, and the device
+     idle share of one more meshed step (phase 5's ``profiled``); (b) the
+     three ``examples/*_torch.py`` as children on the card and with
+     ``--device cpu``: rc 0, the same answer lines, B2 launched in the
+     card children; (c) ``run_and_check`` of 50 schedules drawn by
+     ``batch_lists_strategy`` (a read after each round) on an
+     ``IngestPool`` on the card, every trace linearizable, and
+     ``shrink_schedule`` shrinking a deliberately broken check's failing
+     schedule to a smaller one that still fails; (d) ``python -m
+     repro_torch.launch.dryrun --subprocess`` of qwen2-1.5b train_4k /
+     prefill_32k / decode_32k and olmoe-1b-7b train_4k on the single (16
+     x 16) mesh of fake ranks, with no device, beside (a)-(c): every
+     record ok, its per-device memory, FLOPs and collective bytes printed
 
 It imports nothing of JAX and nothing of the JAX package. It exits non-zero
 without a result when no CUDA device is present or the port is missing.
@@ -295,6 +320,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -433,6 +459,23 @@ TRAIN_KINDS = {"moe": "granite-moe-3b-a800m", "ssm": "mamba2-780m",
                "rec": "recurrentgemma-9b"}
 TRAIN_KIND_RTOL, TRAIN_KIND_GTOL = 1e-4, 1e-3
 TRAIN_CHILD_STEPS = 8
+# phase 14: the LM mesh. (a) resumes phase 13's checkpoint for MESH_STEPS
+# steps (three step walls after the first) on the (1, 1) mesh and without
+# it: equal bit for bit (every collective of a one-rank mesh is the
+# identity), else the differing leaves printed with their largest
+# difference and the loss held within MESH_LOSS_RTOL; (b) the examples;
+# (c) MESH_SCHEDULES schedules; (d) the dry-run cells, children capped at
+# MESH_DRY_TIMEOUT_S (they run beside (a)-(c))
+MESH_DIR = ROOT / "build" / "chip_smoke_mesh"
+MESH_STEPS = 4
+MESH_LOSS_RTOL = 1e-6
+MESH_EXAMPLES = ("quickstart", "distributed_graph", "serve_graph_queries")
+MESH_CHILD_TIMEOUT_S = 300
+MESH_SCHEDULES = 50
+MESH_POOL_CAPACITY = 32
+MESH_DRY_CELLS = ("qwen2-1.5b:train_4k", "qwen2-1.5b:prefill_32k",
+                  "qwen2-1.5b:decode_32k", "olmoe-1b-7b:train_4k")
+MESH_DRY_TIMEOUT_S = 240
 CLOSURE_SCALE, CLOSURE_CAPACITY, CLOSURE_Q = 12, 4160, 256
 COMPLETE_SCALE, COMPLETE_CAPACITY, COMPLETE_PAIRS = 10, 1088, 1024
 WIDE_QS = (1024, 1025)       # the index closures' Q, and a ragged group
@@ -3690,8 +3733,7 @@ def phase_train(torch, rng, card, seed: int):
                      if per_name else "busy not measured (no device "
                      "events)"))
     del params, opt_state, state, named
-    shutil.rmtree(ckpt_dir)
-    torch.cuda.empty_cache()
+    torch.cuda.empty_cache()      # the checkpoint stays for phase 14
 
     # (c) crash and resume at smoke width, f32 and bf16
     for dtype in ("float32", "bfloat16"):
@@ -3734,9 +3776,378 @@ def phase_train(torch, rng, card, seed: int):
     log(f"LM train (e): python -m repro_torch.launch.train --arch {LM_ARCH} "
         f"--smoke --data graph --steps {TRAIN_CHILD_STEPS}: rc 0 in "
         f"{child_s:.1f} s; {lines[-1]}")
-    shutil.rmtree(TRAIN_DIR)
+    shutil.rmtree(TRAIN_DIR / "child")
     log(f"LM train: phase 13 {time.perf_counter() - t_phase:.1f} s; {card}")
     return launches
+
+
+def restored_bits(torch, tree, step_dir: Path) -> int:
+    """Every restored leaf's local tensor against its file, bit for bit
+    (bf16 through its raw bits). Returns the leaf count."""
+    from torch.utils import _pytree as pytree
+
+    leaves = pytree.tree_leaves(tree)
+    for i, t in enumerate(leaves):
+        arr = np.load(step_dir / f"leaf_{i:06d}.npy")
+        local = t.to_local() if hasattr(t, "to_local") else t
+        raw = local.detach().reshape(-1).view(torch.uint8).cpu().numpy()
+        if raw.tobytes() != np.ascontiguousarray(arr).tobytes():
+            raise AssertionError(f"restored leaf {i} differs from its file")
+    return len(leaves)
+
+
+EXAMPLE_WRAP = """
+import json, runpy, sys
+path, args = sys.argv[1], sys.argv[2:]
+sys.argv = [path] + args
+runpy.run_path(path, run_name="__main__")
+from repro_torch.kernels.bfs_multi_step import ops as b1
+from repro_torch.kernels.bfs_pull_step import ops as b2
+from repro_torch.kernels.bfs_step import ops as b3
+from repro_torch.kernels.label_join import ops as lj
+print("LAUNCHES " + json.dumps({"B1": b1.launches, "B2": b2.launches,
+      "B3": b3.launches, "B4": lj.slot_launches}), file=sys.stderr)
+"""
+
+
+def example_answers(out: str) -> list:
+    """An example's answer lines: timings and the device count dropped,
+    the decode line cut to its token count."""
+    lines = []
+    for line in out.splitlines():
+        if line.startswith("devices:"):
+            continue
+        lines.append(line.split(" in ")[0] if line.startswith("decoded ")
+                     else line)
+    return lines
+
+
+def mesh_run(torch, model, mesh, root: Path, steps_n: int, seed: int,
+             base_mem: int):
+    """One ``train()`` resumed from the step in ``root`` to ``steps_n``,
+    on ``mesh`` or (None) without one; its own last step is removed after
+    it. Returns (params, opt_state, losses, step walls, launches, peak,
+    wall s)."""
+    from repro_torch.data.pipeline import GraphPathData
+    from repro_torch.runtime.train_loop import (TrainLoopConfig, train,
+                                                train_shardings)
+
+    params = model.init(torch.Generator(DEVICE).manual_seed(seed))
+    kw = ({} if mesh is None else
+          {"mesh": mesh, "shardings": train_shardings(model.cfg, params,
+                                                      mesh)})
+    tl = TrainLoopConfig(total_steps=steps_n, checkpoint_every=steps_n,
+                         log_every=1, checkpoint_dir=str(root), lr=TRAIN_LR)
+    marks = []
+    sync(torch)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    p, o, hist = train(model, GraphPathData(seed=0, device=DEVICE),
+                       batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, cfg=tl,
+                       params=params, log=lambda line: marks.append(
+                           (time.perf_counter(), line)), **kw)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    shutil.rmtree(root / f"step_{steps_n:09d}")
+    at = [t for t, line in marks if line.startswith("[train] step")]
+    walls = [(b - a) * 1e3 for a, b in zip(at, at[1:])]
+    return p, o, [l for _, l, _ in hist], walls, launches, peak, wall
+
+
+def mesh_train(torch, card, seed: int, total: dict):
+    """Phase 14 (a): ``restore(shardings=)`` onto the (1, 1) mesh, then
+    ``train(mesh=)`` against ``train()`` from phase 13's checkpoint."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import GraphPathData
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.runtime.train_loop import (distribute_params,
+                                                meta_stack, train_shardings,
+                                                train_tree,
+                                                train_tree_shardings)
+
+    src = sorted((TRAIN_DIR / "full").glob("step_*"))[-1]
+    start = int(src.name.split("_")[1])
+    free = shutil.disk_usage(TRAIN_DIR).free
+    ck_bytes = dir_bytes(src)
+    if free < ck_bytes * 1.05:
+        raise AssertionError(
+            f"phase 14 writes {ck_bytes / 1e9:.1f} GB checkpoints one at a "
+            f"time under {TRAIN_DIR}; the disk has {free / 1e9:.1f} GB free")
+    cfg = get_config(LM_ARCH)
+    if LM_SMOKE:
+        cfg = cfg.smoke()
+    model = build_model(cfg)
+    mesh = make_host_mesh(device_type="cuda" if DEVICE == "cuda" else "cpu")
+    steps_n = start + MESH_STEPS
+    try:
+        sync(torch)
+        base_mem = torch.cuda.memory_allocated()
+        # restore(shardings=) alone: every leaf's local tensor is the file
+        params = model.init(torch.Generator(DEVICE).manual_seed(seed))
+        n_params = sum(p.numel() for p in params.parameters())
+        shardings = train_shardings(cfg, params, mesh)
+        distribute_params(params, shardings[0])
+        opt = steps_mod.init_opt_state(params)
+        t0 = time.perf_counter()
+        tree, _ = Checkpointer(str(src.parent)).restore(
+            train_tree(cfg, params, opt, stack=meta_stack),
+            shardings=train_tree_shardings(cfg, params, shardings),
+            device=DEVICE)
+        sync(torch)
+        restore_s = time.perf_counter() - t0
+        n_dt = sum(1 for t in torch.utils._pytree.tree_leaves(tree)
+                   if hasattr(t, "device_mesh"))
+        n_leaves = restored_bits(torch, tree, src)
+        del tree, opt, params
+        log(f"LM mesh (a): Checkpointer.restore(shardings=) of phase 13's "
+            f"step-{start} directory ({ck_bytes / 1e9:.3f} GB) onto the "
+            f"(1, 1) mesh {tuple(mesh.mesh_dim_names)} in {restore_s:.2f} "
+            f"s: {n_dt} of {n_leaves} leaves DTensors on their placements, "
+            f"every local tensor equal to its file bit for bit")
+
+        pm, om, lm, wm, nm, km, sm = mesh_run(torch, model, mesh, src.parent,
+                                              steps_n, seed, base_mem)
+        require_launched(nm, ("B2",), "inside train(mesh=)")
+        for k in total:
+            total[k] += nm[k]
+        if not all(hasattr(q, "device_mesh") for q in pm.parameters()):
+            raise AssertionError("train(mesh=) left a plain param")
+        placed = sorted({tuple(str(x) for x in q.placements)
+                         for q in pm.parameters()})
+        pp, op, lp, wp, npl, kp, sp = mesh_run(torch, model, None,
+                                               src.parent, steps_n, seed,
+                                               base_mem)
+        del op
+        diffs = [(n, float((a.to_local().float() - b.float()).abs().max()))
+                 for (n, a), b in zip(pm.named_parameters(), pp.parameters(),
+                                      strict=True)
+                 if not same_bits(torch, a.to_local(), b)]
+        del pp
+        rel = max(abs(x - y) / abs(y) for x, y in zip(lm, lp))
+        if len(lm) != MESH_STEPS or not np.isfinite(lm).all():
+            raise AssertionError(f"train(mesh=): {lm}")
+        if lm != lp or diffs:
+            log(f"LM mesh (a): meshed and plain differ: losses {lm} vs {lp} "
+                f"(max rel {rel:.3g}); params {diffs[:8]}")
+            if rel > MESH_LOSS_RTOL:
+                raise AssertionError(f"meshed loss off by {rel:.3g}")
+
+        # the device idle share of one more meshed step (its batch, the
+        # step with pinned gradients, the loss read), after the check
+        step_fn = steps_mod.make_train_step(
+            model, lr=TRAIN_LR, remat=True,
+            grad_specs=train_shardings(cfg, pm, mesh)[0])
+        state = [om]
+        bspec = sh.to_named(sh.batch_spec(
+            mesh, "tokens", (TRAIN_BATCH, TRAIN_SEQ)), mesh)
+        data = GraphPathData(seed=0, device=DEVICE)
+
+        def one_step():
+            toks = torch.from_numpy(data.batch(steps_n, TRAIN_BATCH,
+                                               TRAIN_SEQ))
+            sh.set_activation_mesh(mesh)
+            try:
+                _, state[0], m = step_fn(pm, state[0], {
+                    "tokens": sh.distribute(toks, bspec)})
+            finally:
+                sh.set_activation_mesh(None)
+            float(m["loss"].full_tensor())
+
+        pwall, trace_file = profiled(torch, one_step,
+                                     "chip_smoke_mesh_train_step")
+        busy, per_name = _busy_ms(trace_file)
+        del state, om, pm
+        torch.cuda.empty_cache()
+    finally:
+        sh.set_activation_mesh(None)
+        dist.destroy_process_group()
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    med_m, med_p = statistics.median(wm), statistics.median(wp)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    same = "equal bit for bit" if (lm == lp and not diffs) else (
+        f"losses max rel {rel:.3g}, {len(diffs)} param leaves differ")
+    log(f"LM mesh (a): {LM_ARCH} ({n_params:,} params, {cfg.dtype}) "
+        f"train(mesh=make_host_mesh(), shardings=train_shardings(...)) "
+        f"resumed at step {start} from phase 13's checkpoint, {MESH_STEPS} "
+        f"steps on GraphPathData(seed=0) on the card, B {TRAIN_BATCH} x S "
+        f"{TRAIN_SEQ}, make_train_step(grad_specs=): losses "
+        + ", ".join(f"{x:.6f}" for x in lm) + "; without a mesh "
+        + ", ".join(f"{x:.6f}" for x in lp) + f"; losses and params {same}; "
+        f"param placements {placed}; step wall median {med_m:.3f} ms "
+        f"meshed (" + ", ".join(f"{w:.1f}" for w in wm) + f") against "
+        f"{med_p:.3f} ms plain (" + ", ".join(f"{w:.1f}" for w in wp)
+        + f"); {tokens / med_m * 1e3:.1f} / {tokens / med_p * 1e3:.1f} "
+        f"tokens/s; train() wall (restore, steps, save) {sm:.1f} / "
+        f"{sp:.1f} s; peak device memory {km / 1e9:.3f} / {kp / 1e9:.3f} GB "
+        f"above the phase's start; launches inside train(mesh=) {nm}, "
+        f"without {npl}; {card}")
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:4]
+    log(f"profile mesh_train_step: wall {pwall:.3f} ms under the profiler, "
+        "device " + (f"busy {busy:.3f} ms (idle "
+                     f"{100 * (1 - busy / pwall):.1f}%); "
+                     + "; ".join(f"{k} {v:.3f} ms" for k, v in top)
+                     if per_name else "busy not measured (no device "
+                     "events)"))
+
+
+def mesh_examples(env: dict, children: list, total: dict):
+    """Phase 14 (b): the three examples as children on the card and with
+    ``--device cpu``; the same answers, B2 in the card children."""
+    procs = {}
+    t0 = time.perf_counter()
+    for name in MESH_EXAMPLES:
+        for dev in (DEVICE, "cpu"):
+            procs[name, dev] = subprocess.Popen(
+                [sys.executable, "-c", EXAMPLE_WRAP,
+                 str(ROOT / "examples" / f"{name}_torch.py"), "--device",
+                 dev], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, start_new_session=True)
+            children.append(procs[name, dev])
+    outs, launches = {}, {k: 0 for k in total}
+    for key, proc in procs.items():
+        out, err = proc.communicate(timeout=MESH_CHILD_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"example {key}: rc {proc.returncode}; "
+                                 f"{out[-1500:]} {err[-2500:]}")
+        outs[key] = out
+        if key[1] != "cpu":
+            got = json.loads(err.split("LAUNCHES ")[-1].splitlines()[0])
+            for k, v in got.items():
+                launches[k] += v
+    wall = time.perf_counter() - t0
+    for name in MESH_EXAMPLES:
+        a, b = (example_answers(outs[name, d]) for d in (DEVICE, "cpu"))
+        if a != b:
+            raise AssertionError(f"example {name}: card {a} != cpu {b}")
+        log(f"LM mesh (b): examples/{name}_torch.py on the card and with "
+            f"--device cpu: rc 0, the same {len(a)} answer lines: "
+            + " | ".join(a))
+    require_launched(launches, ("B2",), "in the examples on the card")
+    for k, v in launches.items():
+        total[k] += v
+    log(f"LM mesh (b): six children in {wall:.1f} s; launches in the card "
+        f"children {launches}")
+
+
+def mesh_harness(seed: int, total: dict):
+    """Phase 14 (c): ``run_and_check`` of drawn schedules on a pool on the
+    card, and ``shrink_schedule`` on a deliberately broken check."""
+    import random
+
+    from repro_torch.testing import proptest, schedules
+
+    t0 = time.perf_counter()
+    draw_rng = random.Random(seed ^ 0xC0FFEE)
+    strat = schedules.batch_lists_strategy(proptest.strategies)
+    reset_counts()
+    n_reads = n_ops = 0
+    for _ in range(MESH_SCHEDULES):
+        op_lists = strat.draw(draw_rng)
+        trace = schedules.run_and_check(
+            schedules.schedule_from_batches(op_lists),
+            capacity=MESH_POOL_CAPACITY, device=DEVICE)
+        n_reads += len(trace.reads)
+        n_ops += sum(len(b) for b in op_lists)
+    launches = counts()
+    for k, v in launches.items():
+        total[k] += v
+    wall = time.perf_counter() - t0
+
+    def fails(schedule):      # broken on purpose: fails while key 2 lives
+        head = schedules.run_schedule(schedule, capacity=MESH_POOL_CAPACITY,
+                                      device=DEVICE).pool._head
+        return bool(((head.vkey == 2) & head.valive).any())
+
+    big = None
+    while big is None:
+        cand = schedules.schedule_from_batches(strat.draw(draw_rng))
+        if len(cand.steps) >= 6 and fails(cand):
+            big = cand
+    small = schedules.shrink_schedule(big, fails)
+    if not (len(small.steps) < len(big.steps) and fails(small)):
+        raise AssertionError(f"shrink_schedule: {big.pretty()} -> "
+                             f"{small.pretty()}")
+    log(f"LM mesh (c): run_and_check on {MESH_SCHEDULES} schedules drawn by "
+        f"batch_lists_strategy (seed {seed} ^ 0xC0FFEE; {n_ops} ops, "
+        f"{n_reads} reads) on an IngestPool of capacity "
+        f"{MESH_POOL_CAPACITY} on the card (hybrid_cuda): every trace "
+        f"linearizable, in {wall:.1f} s; launches {launches}; a check that "
+        f"fails while key 2 lives shrinks {len(big.steps)} steps to "
+        f"{len(small.steps)}: " + " / ".join(
+            line.strip() for line in small.pretty().splitlines()))
+
+
+def mesh_dry_run(dry, dry_out: Path, t_dry: float):
+    """Phase 14 (d): the dry run's records, every one ok."""
+    _, err = dry.communicate(timeout=max(
+        1.0, MESH_DRY_TIMEOUT_S - (time.perf_counter() - t_dry)))
+    if dry.returncode != 0:
+        raise AssertionError(f"dry run: rc {dry.returncode}; {err[-2000:]}")
+    recs = [json.loads(line) for line in dry_out.read_text().splitlines()]
+    if len(recs) != len(MESH_DRY_CELLS):
+        raise AssertionError(f"dry run: {len(recs)} records")
+    for rec in recs:
+        if not rec["ok"]:
+            raise AssertionError(f"dry run {rec['arch']} {rec['shape']}: "
+                                 f"{rec.get('error')}")
+        m, c, co = rec["memory"], rec["cost"], rec["collectives"]
+        log(f"LM mesh (d): dry run {rec['arch']} {rec['shape']} on the "
+            f"{rec['mesh']} mesh ({rec['devices']} fake ranks, no device): "
+            f"per device argument {m['argument_bytes'] / 1e9:.3f} GB, temp "
+            f"{m['temp_bytes'] / 1e9:.3f} GB, output "
+            f"{m['output_bytes'] / 1e9:.3f} GB; {c['flops'] / 1e12:.3f} "
+            f"TFLOP (matmul class); collectives "
+            + ", ".join(f"{k} {co[k] / 1e9:.3f} GB" for k in
+                        ("all-gather", "all-reduce", "reduce-scatter",
+                         "all-to-all"))
+            + f" in {co['count']} ops; traced in {rec['trace_s']} s")
+    log(f"LM mesh (d): {len(recs)} cells in "
+        f"{time.perf_counter() - t_dry:.1f} s (children, beside (a)-(c))")
+
+
+def phase_mesh(torch, card, seed: int):
+    """Phase 14: the LM mesh on DTensor (module docstring). Returns the
+    launches counted on its path (``mesh_launches``): inside the meshed
+    ``train()``, the harness's pool and the examples run on the card."""
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in KERNEL_META}
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    # (d) first, in the background: the dry run needs no card (its child
+    # sees none) and runs on the host while (a)-(c) use the card
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    dry_out = MESH_DIR / "dryrun.jsonl"
+    t_dry = time.perf_counter()
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--cells",
+         ",".join(MESH_DRY_CELLS), "--mesh", "single", "--subprocess",
+         "--out", str(dry_out)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True,
+        env={**env, "CUDA_VISIBLE_DEVICES": ""})
+    children = [dry]
+    try:
+        mesh_train(torch, card, seed, total)
+        mesh_examples(env, children, total)
+        mesh_harness(seed, total)
+        mesh_dry_run(dry, dry_out, t_dry)
+    finally:
+        for proc in children:      # none outlives the phase
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    log(f"LM mesh: phase 14 {time.perf_counter() - t_phase:.1f} s; {card}")
+    return total
 
 
 PROFILE_MARK = "measured"
@@ -4407,6 +4818,7 @@ def main(argv=None) -> int:
         torch, np.random.default_rng([args.seed, 10]), card, args.seed)
     train_launches = phase_train(
         torch, np.random.default_rng([args.seed, 11]), card, args.seed)
+    mesh_launches = phase_mesh(torch, card, args.seed)
     for key, k in zip(KERNEL_META, kernels):
         k["serving_launches"] = slaunches[key]
         k["durable_launches"] = dur_launches[key]
@@ -4414,6 +4826,7 @@ def main(argv=None) -> int:
         k["lm_serve_launches"] = lm_launches[key]
         k["lm_family_launches"] = fam_launches[key]
         k["lm_train_launches"] = train_launches[key]
+        k["mesh_launches"] = mesh_launches[key]
     log(f"card: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

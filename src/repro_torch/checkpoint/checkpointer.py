@@ -26,8 +26,9 @@ ml_dtypes' bfloat16 gives the header descr ``'<V2'`` and the raw bits, and
 the manifest names the dtype ``bfloat16``. They are read back bit for bit
 through an int16 view (no ml_dtypes needed). The LM train loop saves its
 ``(params, opt_state)`` in the JAX package's tree (``convert.jax_layout``),
-so either package resumes from the other's directory. Sharded restores
-(``shardings=``) are ROADMAP.md queue A12 (iv).
+so either package resumes from the other's directory. ``restore(
+shardings=)`` places each leaf as a DTensor on its mesh; a tree of DTensors
+is gathered by every process on ``save`` and written by global rank 0.
 """
 from __future__ import annotations
 
@@ -87,11 +88,29 @@ def to_host(x) -> np.ndarray:
     ``.numpy()`` would share the caller's memory), bfloat16 as its raw
     bits in a two-byte void."""
     if isinstance(x, torch.Tensor):
+        if _is_dtensor(x):
+            x = x.full_tensor()          # a collective: every rank calls it
         t = x.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view("V2")
         return t.numpy()
     return np.asarray(x)
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _writes(leaves) -> bool:
+    """Whether this process writes a tree it has gathered: every process
+    of a tree of DTensors gathers it, only global rank 0 writes it."""
+    import torch.distributed as dist
+
+    if not any(_is_dtensor(x) for x in leaves):
+        return True
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _dtype_name(a: np.ndarray) -> str:
@@ -163,6 +182,8 @@ class Checkpointer:
         self.wait()
         leaves, spec = pytree.tree_flatten(tree)
         host_leaves = [to_host(x) for x in leaves]    # device -> host now
+        if not _writes(leaves):
+            return
         manifest = {
             "step": int(step),
             "treedef": _treedef_str(spec),
@@ -264,18 +285,31 @@ class Checkpointer:
         """Load into the structure of ``template`` (values ignored) as
         tensors on the card unless ``device`` names another; a leaf takes
         the dtype of its template leaf where that has one. Returns (tree,
-        manifest)."""
-        if shardings is not None:
-            raise TypeError("Checkpointer.restore places leaves on one "
-                            "device: sharded restores are ROADMAP.md queue "
-                            "A12 (iv)")
+        manifest).
+
+        ``shardings``: a tree of the template's structure whose leaves are
+        ``parallel.sharding.NamedSharding`` (or None): each such leaf is
+        placed on its mesh as a DTensor, the process cutting its own block
+        out of the file on the host and moving only that to its device
+        (the elastic re-placement of JAX's ``device_put`` on a
+        ``NamedSharding``; the saving mesh may differ)."""
+        from repro_torch.parallel.sharding import NamedSharding, distribute
+
         dev = resolve_device(device)
+        shard_leaves = None
+        if shardings is not None:
+            shard_leaves = pytree.tree_flatten(
+                shardings, is_leaf=lambda x: x is None
+                or isinstance(x, NamedSharding))[0]
         path, manifest = self._manifest(step)
         leaves_t, spec = pytree.tree_flatten(template)
         if manifest["n_leaves"] != len(leaves_t):
             raise ValueError(f"tree structure changed: checkpoint has "
                              f"{manifest['n_leaves']} leaves, template "
                              f"{len(leaves_t)}")
+        if shard_leaves is not None and len(shard_leaves) != len(leaves_t):
+            raise ValueError(f"shardings have {len(shard_leaves)} leaves, "
+                             f"the template {len(leaves_t)}")
         out = []
         for i, tmpl in enumerate(leaves_t):
             arr = np.load(os.path.join(path, f"leaf_{i:06d}.npy"))
@@ -284,7 +318,10 @@ class Checkpointer:
             else:
                 t = _tensor(arr.astype(tmpl.dtype) if hasattr(tmpl, "dtype")
                             else arr)
-            out.append(t.to(dev))
+            if shard_leaves is not None and shard_leaves[i] is not None:
+                out.append(distribute(t, shard_leaves[i]))
+            else:
+                out.append(t.to(dev))
         return pytree.tree_unflatten(out, spec), manifest
 
     def restore_raw(self, *, step: int | None = None

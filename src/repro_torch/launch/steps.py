@@ -22,17 +22,23 @@ from repro_torch.optim import adamw, grad_compress
 def make_train_step(model, *, lr=3e-4, microbatches: int = 1,
                     remat: bool = True, compress: bool = False,
                     weight_decay: float = 0.1, grad_specs=None):
-    """``grad_specs`` pins gradient shardings in JAX; the port has no mesh
-    on this path, so anything but None raises."""
-    if grad_specs is not None:
-        raise TypeError("make_train_step runs on one device: gradient "
-                        "shardings (grad_specs) are ROADMAP.md queue "
-                        "A12 (iv)")
+    """``grad_specs``: optional {parameter name: ``NamedSharding``} (the
+    param shardings). Each gradient, and the microbatch accumulator, is
+    pinned to its parameter's placement with ``redistribute`` (a partial
+    sum becomes a reduce-scatter), so the optimizer runs ZeRO-sharded
+    where the params are."""
+
+    def pin(grads):
+        if grad_specs is None:
+            return grads
+        return {n: g.redistribute(grad_specs[n].mesh,
+                                  grad_specs[n].placements)
+                for n, g in grads.items()}
 
     def grad_fn(params, leaves, batch):
         loss, metrics = model.loss_and_metrics(params, batch, remat=remat)
         grads = torch.autograd.grad(loss, list(leaves.values()))
-        return loss.detach(), metrics, dict(zip(leaves, grads))
+        return loss.detach(), metrics, pin(dict(zip(leaves, grads)))
 
     def train_step(params, opt_state, batch):
         leaves = adamw.named_leaves(params)
@@ -43,9 +49,8 @@ def make_train_step(model, *, lr=3e-4, microbatches: int = 1,
             metrics = {k: v.detach() for k, v in metrics.items()}
         else:
             b = next(iter(batch.values())).shape[0] // microbatches
-            grads = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
-                     for n, p in leaves.items()}
+            grads = pin({n: torch.zeros_like(p, dtype=torch.float32)
+                         for n, p in leaves.items()})
             loss = 0.0
             for i in range(microbatches):
                 mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}

@@ -19,6 +19,13 @@ values is exact in f32). Query heads are grouped under their KV head
 rather than KV repeated to every head: the same dot products, and decode
 reads each KV head of the cache in place, one batched product per KV head,
 with no copy of the cache.
+
+On DTensors (a mesh set by ``parallel.sharding.set_activation_mesh``) the
+chunked core and the decode step run as ``local_map`` bodies on each
+rank's blocks, in the layouts the ``attn_q`` / ``attn_kv`` hooks and
+``cache_specs`` pin: heads over "model" where they divide it, else the
+sequence (prefill) or the cache length (decode, flash-decoding style: one
+max and two sums over "model").
 """
 from __future__ import annotations
 
@@ -55,12 +62,46 @@ def init_attn(gen, cfg, *, cross: bool = False) -> nn.ParameterDict:
     return pdict(**p)
 
 
+def _split_heads(x, n: int, hd: int):
+    """[B, S, n * hd] -> [B, S, n, hd]. A DTensor whose last dim is split
+    over a mesh dim that does not divide ``n`` (whole heads) is first
+    gathered on that dim: a split inside a head has no layout."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        x = _whole_heads(x, n)
+    return x.reshape(*x.shape[:-1], n, hd)
+
+
+def _whole_heads(g, n: int):
+    """``g`` [..., n * hd] with its last dim gathered on every mesh dim
+    that does not divide ``n``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = g.device_mesh
+    pl = [Replicate() if pi == Shard(g.ndim - 1) and n % mesh.size(i)
+          else pi for i, pi in enumerate(g.placements)]
+    return g if pl == list(g.placements) else g.redistribute(mesh, pl)
+
+
+def _merge_heads(x):
+    """[B, S, n, hd] -> [B, S, n * hd]. On a DTensor the gradient coming
+    back is gathered where it splits inside a head (the projection's
+    backward may split it so), so that it unflattens."""
+    from torch.distributed.tensor import DTensor
+
+    n = x.shape[2]
+    out = x.reshape(*x.shape[:2], n * x.shape[3])
+    if isinstance(out, DTensor) and out.requires_grad:
+        out.register_hook(lambda g: _whole_heads(g, n))
+    return out
+
+
 def _project_q(cfg, p, x):
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"].to(q.dtype)      # f32 bias, cast to the activations
-    b, s, _ = q.shape
-    q = q.reshape(b, s, cfg.n_heads, cfg.hd)
+    q = _split_heads(q, cfg.n_heads, cfg.hd)
     if "qnorm" in p:
         q = _headnorm(cfg, q, p["qnorm"])
     return q
@@ -71,9 +112,8 @@ def _project_kv(cfg, p, x):
     v = x @ p["wv"]
     if "bk" in p:
         k, v = k + p["bk"].to(k.dtype), v + p["bv"].to(v.dtype)
-    b, s, _ = k.shape
-    k = k.reshape(b, s, cfg.n_kv, cfg.hd)
-    v = v.reshape(b, s, cfg.n_kv, cfg.hd)
+    k = _split_heads(k, cfg.n_kv, cfg.hd)
+    v = _split_heads(v, cfg.n_kv, cfg.hd)
     if "knorm" in p:
         k = _headnorm(cfg, k, p["knorm"])
     return k, v
@@ -143,15 +183,17 @@ def _pick_chunk(t: int, chunk: int) -> int:
 
 
 def _attend_chunked(cfg, q, k, v, *, causal: bool = True, window: int,
-                    chunk: int = 1024):
-    """q: [B,S,H,hd], k/v: [B,T,Kv,hd] -> [B,S,H,hd].
+                    q_pos0: int = 0, chunk: int = 1024):
+    """q: [B,S,H,hd], k/v: [B,T,Kv,hd] -> [B,S,H,hd], query head i reading
+    KV head i // (H / Kv).
 
     Online-softmax scan over KV chunks; ``causal`` masks keys after each
     query, ``window`` > 0 restricts each query to a trailing window
-    (sliding-window attention)."""
+    (sliding-window attention); the queries sit at positions ``q_pos0``
+    onwards."""
     b, s, h, hd = q.shape
     t = k.shape[1]
-    kv = cfg.n_kv
+    kv = k.shape[2]
     g = h // kv
     ck = _pick_chunk(t, chunk)
     nck = t // ck
@@ -166,7 +208,7 @@ def _attend_chunked(cfg, q, k, v, *, causal: bool = True, window: int,
     kt = k.permute(0, 2, 1, 3).reshape(b * kv, t, hd)
     vt = v.permute(0, 2, 1, 3).reshape(b * kv, t, hd)
 
-    q_ids = torch.arange(s, dtype=torch.int32, device=dev)
+    q_ids = q_pos0 + torch.arange(s, dtype=torch.int32, device=dev)
     m = torch.full((b * kv, g, s), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b * kv, g, s), dtype=torch.float32, device=dev)
     acc = torch.zeros((b * kv, g, s, hd), dtype=torch.float32, device=dev)
@@ -194,6 +236,101 @@ def _attend_chunked(cfg, q, k, v, *, causal: bool = True, window: int,
     return out.reshape(b, s, h, hd)
 
 
+def _model_coord(mesh) -> int:
+    """This rank's coordinate on the mesh's "model" axis (0 without one)."""
+    names = mesh.mesh_dim_names
+    return mesh.get_local_rank("model") if "model" in names else 0
+
+
+def _model_dim(mesh) -> int | None:
+    """The index of the mesh's "model" dim (None without one)."""
+    names = mesh.mesh_dim_names
+    return names.index("model") if "model" in names else None
+
+
+class _DenseGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous: a ``local_map``
+    body's input gradients become the local tensors of DTensors that
+    claim a contiguous layout."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _attend(cfg, q, k, v, *, causal: bool, window: int):
+    """``_attend_chunked``, or on DTensors its sharded form: q pinned by
+    the ``attn_q`` hook (heads over "model" when they divide it, else the
+    sequence), k/v by ``attn_kv`` (their heads over "model" where the
+    query heads are and the KV heads divide too, else whole on every
+    model rank), then the chunked core on each rank's local blocks
+    (``local_map``), which needs no collective: a rank's query heads read
+    the KV heads of their groups, a rank's query rows sit at its sequence
+    offset."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(q, DTensor):
+        return _attend_chunked(cfg, q, k, v, causal=causal, window=window)
+    from repro_torch.parallel import sharding as sh
+
+    mesh = q.device_mesh
+    q = sh.shard_activation(q, "attn_q")
+    b, t, kvh, hd = k.shape
+    kv_spec = sh.activation_spec((b, t, q.shape[2], hd), "attn_kv")
+    md = _model_dim(mesh)
+    heads = md is not None and q.placements[md] == Shard(2)
+    if kv_spec[2] is not None and not sh._fits(mesh, kvh, kv_spec[2]):
+        kv_spec = sh.P(kv_spec[0], None, None, None)
+    k = sh.constrain(k, kv_spec)
+    v = sh.constrain(v, kv_spec)
+    seq = md is not None and q.placements[md] == Shard(1)
+    r = _model_coord(mesh)
+    h_all, g = cfg.n_heads, cfg.n_heads // cfg.n_kv
+
+    split = mesh.size() > 1      # one rank's strides are the global ones
+
+    def local(ql, kl, vl):
+        if split:
+            ql, kl, vl = (_DenseGrad.apply(t) for t in (ql, kl, vl))
+        hl = ql.shape[2]
+        if heads and kl.shape[2] == kvh and hl < h_all:
+            h0 = r * hl              # this rank's query heads, whole KV
+            if hl % g == 0:
+                kl = kl[:, :, h0 // g:(h0 + hl) // g]
+                vl = vl[:, :, h0 // g:(h0 + hl) // g]
+            elif g % hl == 0:
+                kl = kl[:, :, h0 // g:h0 // g + 1]
+                vl = vl[:, :, h0 // g:h0 // g + 1]
+            else:
+                idx = (h0 + torch.arange(hl, device=kl.device)) // g
+                kl, vl = kl[:, :, idx], vl[:, :, idx]
+        return _attend_chunked(cfg, ql, kl, vl, causal=causal,
+                               window=window,
+                               q_pos0=r * ql.shape[1] if seq else 0)
+
+    # where k/v are whole on a mesh dim that splits q, each rank's k/v
+    # gradient covers its own queries: a partial sum over that dim
+    kv_grad = [Partial() if pk == Replicate() and pq != Replicate() else pk
+               for pq, pk in zip(q.placements, k.placements)]
+    out = local_map(local, out_placements=list(q.placements),
+                    in_placements=(list(q.placements), list(k.placements),
+                                   list(v.placements)),
+                    in_grad_placements=(list(q.placements), kv_grad,
+                                        kv_grad),
+                    device_mesh=mesh)(q, k, v)
+    if not seq:
+        return out
+    # the projection flattens [B, S]: a split sequence would become a
+    # strided split that DTensor cannot multiply, so gather it here
+    return out.redistribute(mesh, [Replicate() if pl == Shard(1) else pl
+                                   for pl in out.placements])
+
+
 # ----------------------------------------------------------------------------
 # public forward paths
 # ----------------------------------------------------------------------------
@@ -210,9 +347,9 @@ def attn_forward(cfg, p, x, positions, *, causal=True, window=0,
     if use_rope and memory is None:
         q = apply_rope(cfg, q, positions[None, :])
         k = apply_rope(cfg, k, positions[None, :])
-    out = _attend_chunked(cfg, q, k, v, causal=causal, window=window)
+    out = _attend(cfg, q, k, v, causal=causal, window=window)
     b, s = x.shape[0], x.shape[1]
-    out = out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
+    out = _merge_heads(out) @ p["wo"]
     return out, (k, v)
 
 
@@ -225,37 +362,110 @@ def attn_decode(cfg, p, x, cache_k, cache_v, pos, *, window=0):
     cache by absolute position (mask ids <= pos). A sliding-window layer
     whose cache length equals its window uses it as a ring: the token
     writes slot pos % L, keys keep their absolute rotation, and the mask
-    ids <= pos only gates the warm-up.
+    ids <= pos only gates the warm-up. DTensor caches (laid out by
+    ``parallel.sharding.cache_specs``) take ``_decode_sharded``.
     """
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.parallel.sharding import replicate_like
+
     b = x.shape[0]
     L = cache_k.shape[1]
     pos = int(pos)
     ring = bool(window) and window <= L and L != 0 and window == L
     q = _project_q(cfg, p, x)              # [B,1,H,hd]
     k_new, v_new = _project_kv(cfg, p, x)  # [B,1,Kv,hd]
-    ppos = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    ppos = replicate_like(
+        torch.full((1, 1), pos, dtype=torch.int32, device=x.device), q)
     q = apply_rope(cfg, q, ppos)
     k_new = apply_rope(cfg, k_new, ppos)
     # dynamic_update_slice clamps its start index into the cache
     widx = min(max((pos % L) if ring else pos, 0), L - 1)
-    cache_k[:, widx] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[:, widx] = v_new[:, 0].to(cache_v.dtype)
+    mask_window = window if (window and not ring) else 0
+    if isinstance(cache_k, DTensor):
+        out = _decode_sharded(cfg, q, k_new, v_new, cache_k, cache_v, pos,
+                              widx, mask_window)
+        return _merge_heads(out).to(x.dtype) @ p["wo"], cache_k, cache_v
+    out = _decode_core(cfg, q, k_new, v_new, cache_k, cache_v, pos, widx,
+                       mask_window)
+    out = out.reshape(b, 1, cfg.n_heads * cfg.hd).to(x.dtype) @ p["wo"]
+    return out, cache_k, cache_v
 
-    kv = cfg.n_kv
-    g = cfg.n_heads // kv
+
+def _decode_core(cfg, q, k_new, v_new, cache_k, cache_v, pos, widx,
+                 window, l0=0, group=None):
+    """The decode step on plain tensors: write slot ``widx`` (global; this
+    block holds cache positions [l0, l0 + L)), then attend. q [B,1,h,hd]
+    with h query heads over the block's KV heads. ``group``: the process
+    group that holds the other blocks of the cache's length, reduced over
+    (flash decoding: each block's partial softmax, then one max and two
+    sums); None when this block is the whole length. -> [B,Kv,g,hd] f32."""
+    import torch.distributed._functional_collectives as fc
+
+    b = q.shape[0]
+    L = cache_k.shape[1]
+    if l0 <= widx < l0 + L:
+        cache_k[:, widx - l0] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[:, widx - l0] = v_new[:, 0].to(cache_v.dtype)
+    kv = cache_k.shape[2]
+    g = q.shape[2] // kv
     qf = (q.float() * _qscale(cfg)).to(cache_k.dtype).view(b, kv, g, cfg.hd)
     # one product per KV head, reading the cache's [B, L, hd] slice where
     # it lies: no copy of the cache in any dtype
     sc = torch.stack([_bmm_f32(qf[:, j], cache_k[:, :, j].transpose(1, 2))
                       for j in range(kv)], dim=1)          # [B,Kv,g,L] f32
     sc = softcap(sc, cfg.attn_softcap)
-    ids = torch.arange(L, dtype=torch.int32, device=x.device)
+    ids = l0 + torch.arange(L, dtype=torch.int32, device=q.device)
     mask = ids <= pos
-    if window and not ring:
+    if window:
         mask &= (pos - ids) < window
     sc = torch.where(mask, sc, NEG_INF)
-    pr = torch.softmax(sc, dim=-1).to(cache_v.dtype)
-    out = torch.stack([_bmm_f32(pr[:, j], cache_v[:, :, j])
-                       for j in range(kv)], dim=1)         # [B,Kv,g,hd] f32
-    out = out.reshape(b, 1, cfg.n_heads * cfg.hd).to(x.dtype) @ p["wo"]
-    return out, cache_k, cache_v
+    if group is None:
+        pr = torch.softmax(sc, dim=-1).to(cache_v.dtype)
+        return torch.stack([_bmm_f32(pr[:, j], cache_v[:, :, j])
+                            for j in range(kv)], dim=1)    # [B,Kv,g,hd] f32
+    m = fc.all_reduce(sc.amax(-1), "max", group)
+    e = torch.exp(sc - m[..., None])
+    den = fc.all_reduce(e.sum(-1), "sum", group)
+    pr = e.to(cache_v.dtype)
+    num = torch.stack([_bmm_f32(pr[:, j], cache_v[:, :, j])
+                       for j in range(kv)], dim=1)
+    return fc.all_reduce(num, "sum", group) / den[..., None]
+
+
+def _decode_sharded(cfg, q, k_new, v_new, cache_k, cache_v, pos, widx,
+                    window):
+    """``_decode_core`` on each rank's block of DTensor caches
+    [B, L, Kv, hd] (``local_map``): batch over the data axes; KV heads over
+    "model", with the query heads of their groups, or else the length over
+    "model", each rank writing the slot only where it holds it and the
+    softmax reduced over "model" (flash decoding). -> [B,1,H,hd] f32."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = cache_k.device_mesh
+    cp = list(cache_k.placements)
+    md = _model_dim(mesh)
+    # a length split over one rank is the whole length: the plain softmax
+    length = md is not None and cp[md] == Shard(1) and mesh.size(md) > 1
+    if any(pl not in (Replicate(), Shard(0), Shard(1), Shard(2))
+           for pl in cp):
+        raise NotImplementedError(f"decode on a cache laid out {cp}")
+    # the new token's q/k/v: the cache's batch split, heads as the cache's
+    new = [Replicate() if pl == Shard(1) else pl for pl in cp]
+    q = q.redistribute(mesh, new)
+    k_new = k_new.redistribute(mesh, new)
+    v_new = v_new.redistribute(mesh, new)
+    r = _model_coord(mesh)
+    b, hd = q.shape[0], cfg.hd
+
+    def local(ql, kl, vl, ckl, cvl):
+        ln = ckl.shape[1]
+        out = _decode_core(cfg, ql, kl, vl, ckl, cvl, pos, widx, window,
+                           l0=r * ln if length else 0,
+                           group=(mesh, md) if length else None)
+        return out.reshape(ql.shape[0], 1, ql.shape[2], hd)
+
+    return local_map(local, out_placements=new,
+                     in_placements=(new, new, new, cp, cp),
+                     device_mesh=mesh)(q, k_new, v_new, cache_k, cache_v)

@@ -17,9 +17,11 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.parallel import sharding as sh
 
 
 def init_encdec(gen, cfg) -> nn.ModuleDict:
@@ -49,44 +51,55 @@ def init_encdec(gen, cfg) -> nn.ModuleDict:
         "dec_norm": L.init_norm(cfg, cfg.d_model, dev)})
 
 
+def _res(x, y):
+    """x + y, pinned to the batch layout (a no-op without a mesh)."""
+    return sh.shard_activation(x + y, "hidden")
+
+
 def encode(cfg, params, frames):
     """frames: [B, F, d] (stub embeddings) -> [B, F, d]."""
     f = frames.shape[1]
-    x = frames + L.sinusoidal_positions(f, cfg.d_model, frames.device).to(
+    frames = sh.shard_activation(frames, "hidden")
+    pe = L.sinusoidal_positions(f, cfg.d_model, frames.device).to(
         frames.dtype)[None]
-    positions = torch.arange(f, dtype=torch.int32, device=frames.device)
+    x = frames + sh.replicate_like(pe, frames)
+    positions = sh.replicate_like(
+        torch.arange(f, dtype=torch.int32, device=frames.device), x)
     for p in params["enc"]:
+        p = sh.fsdp_gather(p)
         h = L.apply_norm(cfg, p["norm1"], x)
         a, _ = attn.attn_forward(cfg, p["attn"], h, positions, causal=False,
                                  use_rope=False)
-        x = x + a
+        x = _res(x, a)
         h = L.apply_norm(cfg, p["norm2"], x)
-        x = x + L.apply_mlp(cfg, p["mlp"], h)
+        x = _res(x, L.apply_mlp(cfg, p["mlp"], h))
     return L.apply_norm(cfg, params["enc_norm"], x)
 
 
 def decode_fwd(cfg, params, tokens, enc_out, *, want_cache: bool):
     """Full decoder pass. tokens: [B,S] -> (logits [B,S,V], caches | None)."""
-    x = L.embed_tokens(cfg, params["embed"], tokens)
-    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                             device=x.device)
+    embed = sh.fsdp_gather(params["embed"])
+    x = sh.shard_activation(L.embed_tokens(cfg, embed, tokens), "hidden")
+    positions = sh.replicate_like(torch.arange(
+        tokens.shape[1], dtype=torch.int32, device=x.device), x)
     kvs, ckvs = [], []
     for p in params["dec"]:
+        p = sh.fsdp_gather(p)
         h = L.apply_norm(cfg, p["norm1"], x)
         a, kv = attn.attn_forward(cfg, p["self"], h, positions, causal=True)
-        x = x + a
+        x = _res(x, a)
         h = L.apply_norm(cfg, p["norm_x"], x)
         c, ckv = attn.attn_forward(cfg, p["cross"], h, positions,
                                    causal=False, memory=enc_out,
                                    use_rope=False)
-        x = x + c
+        x = _res(x, c)
         h = L.apply_norm(cfg, p["norm2"], x)
-        x = x + L.apply_mlp(cfg, p["mlp"], h)
+        x = _res(x, L.apply_mlp(cfg, p["mlp"], h))
         if want_cache:
             kvs.append(kv)
             ckvs.append(ckv)
     x = L.apply_norm(cfg, params["dec_norm"], x)
-    logits = L.unembed(cfg, params["embed"], x)
+    logits = L.unembed(cfg, embed, x)
     if not want_cache:
         return logits, None
     k, v = (torch.stack(t) for t in zip(*kvs))
@@ -96,7 +109,12 @@ def decode_fwd(cfg, params, tokens, enc_out, *, want_cache: bool):
 
 def _cross_decode(cfg, p, h, xk, xv):
     """One query against the fixed encoder K/V, in f32 as JAX computes it.
-    h: [B,1,d]; xk/xv: [B,F,Kv,hd] -> [B,1,d]."""
+    h: [B,1,d]; xk/xv: [B,F,Kv,hd] -> [B,1,d]. On DTensors each rank runs
+    it on its batch rows (``sharding.on_local_rows``)."""
+    if isinstance(h, DTensor):
+        return sh.on_local_rows(
+            lambda hl, pl, kl, vl: _cross_decode(cfg, pl, hl, kl, vl), h,
+            {k: p[k] for k in ("wq", "wo")}, xk, xv, n_out=1)
     b = h.shape[0]
     kv, g = cfg.n_kv, cfg.n_heads // cfg.n_kv
     q = (h @ p["wq"]).float().reshape(b, kv, g, cfg.hd) * (cfg.hd ** -0.5)
@@ -110,18 +128,21 @@ def decode_step(cfg, params, tokens, caches, cross_kv, pos):
     """One-token decode. tokens: [B]; caches: stacked (k, v) self caches,
     written in place; cross_kv: stacked (k, v) over the encoder frames.
     -> (logits [B,V], caches)."""
-    x = L.embed_tokens(cfg, params["embed"], tokens[:, None])
+    embed = sh.fsdp_gather(params["embed"])
+    x = sh.shard_activation(L.embed_tokens(cfg, embed, tokens[:, None]),
+                            "hidden")
     (ck, cv), (xk, xv) = caches, cross_kv
     for li, p in enumerate(params["dec"]):
+        p = sh.fsdp_gather(p)
         h = L.apply_norm(cfg, p["norm1"], x)
         a, _, _ = attn.attn_decode(cfg, p["self"], h, ck[li], cv[li], pos)
-        x = x + a
+        x = _res(x, a)
         h = L.apply_norm(cfg, p["norm_x"], x)
-        x = x + _cross_decode(cfg, p["cross"], h, xk[li], xv[li])
+        x = _res(x, _cross_decode(cfg, p["cross"], h, xk[li], xv[li]))
         h = L.apply_norm(cfg, p["norm2"], x)
-        x = x + L.apply_mlp(cfg, p["mlp"], h)
+        x = _res(x, L.apply_mlp(cfg, p["mlp"], h))
     x = L.apply_norm(cfg, params["dec_norm"], x)
-    return L.unembed(cfg, params["embed"], x)[:, 0], caches
+    return L.unembed(cfg, embed, x)[:, 0], caches
 
 
 def init_dec_cache(cfg, batch: int, cache_len: int, dtype, device):

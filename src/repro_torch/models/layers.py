@@ -58,7 +58,14 @@ def init_norm(cfg, dim: int, device) -> nn.ParameterDict:
 
 def apply_norm(cfg, params, x):
     """RMSNorm (or mean-subtracted LayerNorm without bias) in f32, cast
-    back to ``x``'s dtype; a non-parametric norm has no scale."""
+    back to ``x``'s dtype; a non-parametric norm has no scale. On a mesh
+    ``x`` is first pinned to the "hidden" layout: the norm reduces over
+    d, and a partial sum (a row-parallel product's output) would
+    otherwise be split over rows by "model", a strided split the next
+    products cannot take."""
+    from repro_torch.parallel.sharding import shard_activation
+
+    x = shard_activation(x, "hidden")
     xf = x.float()
     if cfg.norm_type == "layernorm":
         xf = xf - xf.mean(-1, keepdim=True)
@@ -103,8 +110,10 @@ def rope_freqs(cfg, hd: int, device=None):
 def apply_rope(cfg, x, positions):
     """x: [..., S, H, hd]; positions: int tensor broadcastable to [..., S].
     Rotates the split halves (not interleaved pairs) in f32."""
+    from repro_torch.parallel.sharding import replicate_like
+
     hd = x.shape[-1]
-    inv = rope_freqs(cfg, hd, x.device)                   # [hd/2]
+    inv = replicate_like(rope_freqs(cfg, hd, x.device), positions)  # [hd/2]
     ang = positions[..., None].float() * inv              # [..., S, hd/2]
     sin, cos = torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -136,7 +145,7 @@ def init_embed(gen, cfg) -> nn.ParameterDict:
 
 
 def embed_tokens(cfg, params, tokens):
-    return params["tok"][tokens.long()]
+    return F.embedding(tokens.long(), params["tok"])
 
 
 def unembed(cfg, params, x):

@@ -17,7 +17,9 @@ prefill, 26 TFLOP and an 8.6 GB buffer a layer, against 0.41 TFLOP for
 the rows routed). The port runs each expert's three products over its
 kept rows only, then combines as JAX does: each kept row's output times
 its routing weight cast to the activations' dtype, summed over the
-token's choices.
+token's choices. On a mesh (and on DTensors) the layer is JAX's own form,
+``apply_moe_static``: its shapes do not depend on the routing, so it runs
+on fake tensors and shards as JAX's does.
 """
 from __future__ import annotations
 
@@ -84,8 +86,106 @@ def route(cfg, router, x, cap: int) -> dict:
             "order": order, "top_e": top_e, "aux": aux}
 
 
+def dispatch(cfg, r, x, cap: int):
+    """JAX's capacity buffer [B, E, cap, d]: each kept (token, choice) row
+    of x at its slot, every other row zero."""
+    b, s, d = x.shape
+    e = cfg.n_experts
+    src = torch.gather(x, 1, r["st"][..., None].expand(-1, -1, d))
+    src = torch.where(r["keep"][..., None], src, 0)
+    xin = torch.zeros((b, e * cap + 1, d), dtype=x.dtype, device=x.device)
+    xin = xin.scatter(1, r["slot"][..., None].expand(-1, -1, d), src)
+    return xin[:, :e * cap].reshape(b, e, cap, d)
+
+
+def combine(cfg, r, yo, s: int):
+    """JAX's combine: yo [B, E * cap, d] -> y [B, S, d], each kept entry's
+    expert output times its weight (in the activations' dtype) added to
+    its token."""
+    b, ec, d = yo.shape
+    rows = torch.gather(yo, 1, r["slot"].clamp(0, ec - 1)[..., None]
+                        .expand(-1, -1, d))
+    rows = rows * r["sw"][..., None].to(yo.dtype)
+    tok = torch.where(r["keep"], r["st"], s)
+    y = torch.zeros((b, s + 1, d), dtype=yo.dtype, device=yo.device)
+    return y.scatter_add(1, tok[..., None].expand(-1, -1, d), rows)[:, :s]
+
+
+def apply_moe_static(cfg, p, x, *, capacity_factor: float = 1.25):
+    """``apply_moe`` in JAX's own form, with shapes that do not depend on
+    the routing: the [B, E, cap, d] dispatch buffer, three einsums over
+    every expert's capacity and the combine. On DTensors the routing,
+    dispatch and combine run on each rank's batch rows (``local_map``,
+    the router whole on every rank) and the buffers are pinned by the
+    ``moe_dispatch4`` hook, experts over "model" when they divide it."""
+    from torch.distributed.tensor import DTensor
+
+    b, s, d = x.shape
+    cap = capacity(cfg, s, capacity_factor)
+    if not isinstance(x, DTensor):
+        r = route(cfg, p["router"], x, cap)
+        xin = dispatch(cfg, r, x, cap)
+        yo = _experts(cfg, p, xin).reshape(b, -1, d)
+        return combine(cfg, r, yo, s), r["aux"].mean() * cfg.router_aux_coef
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.parallel import sharding as sh
+
+    mesh = x.device_mesh
+    # groups are batch rows: each rank routes its own rows, whole
+    rows = [pl if pl == Shard(0) else Replicate()
+            for pl in sh.shard_activation(x, "hidden").placements]
+    x = x.redistribute(mesh, rows)
+    rep = [Replicate()] * mesh.ndim
+    router = p["router"].redistribute(mesh, rep)
+    keys = ("aux", "st", "sw", "keep", "slot")   # each [B] or [B, S * k]
+
+    def local_route(xl, rl):
+        r = route(cfg, rl, xl, cap)
+        return (dispatch(cfg, r, xl, cap), *(r[k] for k in keys))
+
+    # each rank's router gradient covers its own rows: a partial sum
+    # over the mesh dims that split them
+    router_grad = [Partial() if pl == Shard(0) else pl for pl in rows]
+    xin, aux, *rest = local_map(
+        local_route, out_placements=(rows, *([rows] * 5)),
+        in_placements=(rows, rep), in_grad_placements=(rows, router_grad),
+        device_mesh=mesh)(x, router)
+    # the moe_dispatch4 hook's layout, without its capacity split (taken
+    # where the experts do not divide "model"): the einsums flatten
+    # [G, C] into one dim, and a split of both is a strided split DTensor
+    # cannot multiply
+    spec = sh.activation_spec(tuple(xin.shape), "moe_dispatch4")
+    spec = sh.P(spec[0], spec[1], None, None)
+    xin = sh.constrain(xin, spec)
+    yo = sh.constrain(_experts(cfg, p, xin), spec)
+    yo = yo.redistribute(mesh, rows).reshape(b, -1, d)
+
+    def local_combine(yl, *rl):
+        return combine(cfg, dict(zip(keys[1:], rl)), yl, s)
+
+    y = local_map(local_combine, out_placements=rows,
+                  in_placements=(rows, *([rows] * 4)), device_mesh=mesh)(
+                      yo, *rest)
+    return y, aux.mean() * cfg.router_aux_coef
+
+
+def _experts(cfg, p, xin):
+    h = _act(cfg, torch.einsum("gecd,edf->gecf", xin, p["wg"])) * (
+        torch.einsum("gecd,edf->gecf", xin, p["wi"]))
+    return torch.einsum("gecf,efd->gecd", h, p["wo"])
+
+
 def apply_moe(cfg, p, x, *, capacity_factor: float = 1.25):
-    """x: [B, S, d] -> (y [B, S, d], aux_loss scalar). Group = batch row."""
+    """x: [B, S, d] -> (y [B, S, d], aux_loss scalar). Group = batch row.
+    With a mesh set (or on DTensors) this is ``apply_moe_static``."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.parallel import sharding as sh
+
+    if sh.activation_mesh() is not None or isinstance(x, DTensor):
+        return apply_moe_static(cfg, p, x, capacity_factor=capacity_factor)
     b, s, d = x.shape
     k = cfg.top_k
     r = route(cfg, p["router"], x, capacity(cfg, s, capacity_factor))

@@ -20,8 +20,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.layers import dense_init, dtype_of, pdict
+from repro_torch.parallel.sharding import on_local_rows
 
 _C = 8.0
 
@@ -89,7 +91,11 @@ def linear_scan(a, b):
 
 def apply_rglru(cfg, p, x):
     """x: [B,S,d] -> (y [B,S,d], h_last [B,d_lru] f32, conv_tail
-    [B,K-1,d_lru])."""
+    [B,K-1,d_lru]). On DTensors each rank runs it on its batch rows
+    (``sharding.on_local_rows``)."""
+    if isinstance(x, DTensor):
+        return on_local_rows(lambda xl, pl: apply_rglru(cfg, pl, xl), x, p,
+                             n_out=3)
     u = x @ p["in_x"]
     g = _gelu((x @ p["in_g"]).float())
     u, conv_tail = _conv(p, u)
@@ -101,7 +107,12 @@ def apply_rglru(cfg, p, x):
 
 def apply_rglru_decode(cfg, p, x, h, conv_cache):
     """One-token update. x: [B,1,d]; h: [B,d_lru]; conv_cache:
-    [B,K-1,d_lru] -> (y, h', conv_cache'), new tensors as in JAX."""
+    [B,K-1,d_lru] -> (y, h', conv_cache'), new tensors as in JAX; on
+    DTensors, on each rank's batch rows."""
+    if isinstance(x, DTensor):
+        return on_local_rows(
+            lambda xl, pl, hl, cl: apply_rglru_decode(cfg, pl, xl, hl, cl),
+            x, p, h, conv_cache, n_out=3)
     u = x @ p["in_x"]
     g = _gelu((x @ p["in_g"]).float())
     u, conv_cache = _conv(p, u, tail=conv_cache)

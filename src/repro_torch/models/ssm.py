@@ -21,8 +21,10 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.layers import dense_init, dtype_of, pdict
+from repro_torch.parallel.sharding import on_local_rows
 
 
 def _dims(cfg):
@@ -46,8 +48,14 @@ def init_ssm(gen, cfg) -> nn.ParameterDict:
         out_proj=dense_init(gen, (din, d), dt))
 
 
-def _split_proj(cfg, zxbcdt):
-    din, nh, hd, n = _dims(cfg)
+def _layer_dims(cfg, p):
+    """(d_inner, H, headdim, N) of a layer's params: the config's, or a
+    rank's heads (``_head_params``)."""
+    return (p["conv_w"].shape[1], p["a_log"].shape[0], cfg.ssm_headdim,
+            cfg.ssm_state)
+
+
+def _split_proj(zxbcdt, din: int, n: int):
     z = zxbcdt[..., :din]
     x = zxbcdt[..., din:2 * din]
     bmat = zxbcdt[..., 2 * din:2 * din + n]
@@ -69,16 +77,19 @@ def apply_ssm(cfg, p, x):
     """Chunked SSD forward. x: [B, S, d] -> (y [B, S, d], final_state
     [B, H, N, hd] f32, conv_tail [B, K-1, din], the pre-conv inputs a
     decode warm-starts from). Raises AssertionError, as JAX's assert does,
-    when the chunk min(ssm_chunk, S) does not divide S."""
+    when the chunk min(ssm_chunk, S) does not divide S. On DTensors it
+    runs on each rank's batch rows and heads (``_on_heads``)."""
+    if isinstance(x, DTensor):
+        return _on_heads(cfg, apply_ssm, x, p)
     b, s, d = x.shape
-    din, nh, hd, n = _dims(cfg)
+    din, nh, hd, n = _layer_dims(cfg, p)
     q = min(cfg.ssm_chunk, s)
     if s % q:
         raise AssertionError((s, q))
     nc = s // q
 
     zxbcdt = x @ p["in_proj"]
-    z, xb_raw, bmat, cmat, dtr = _split_proj(cfg, zxbcdt)
+    z, xb_raw, bmat, cmat, dtr = _split_proj(zxbcdt, din, n)
     conv_tail = xb_raw[:, s - (cfg.ssm_conv - 1):, :]
     xb = _causal_conv(cfg, p, xb_raw)
 
@@ -128,11 +139,14 @@ def apply_ssm_decode(cfg, p, x, state, conv_cache):
     """One-token recurrent update.
 
     x: [B,1,d]; state: [B,H,N,hd] f32; conv_cache: [B,K-1,din]
-    -> (y [B,1,d], state', conv_cache'), new tensors as in JAX."""
+    -> (y [B,1,d], state', conv_cache'), new tensors as in JAX; on
+    DTensors, on each rank's batch rows and heads (``_on_heads``)."""
+    if isinstance(x, DTensor):
+        return _on_heads(cfg, apply_ssm_decode, x, p, state, conv_cache)
     b = x.shape[0]
-    din, nh, hd, n = _dims(cfg)
+    din, nh, hd, n = _layer_dims(cfg, p)
     zxbcdt = x @ p["in_proj"]
-    z, xb, bmat, cmat, dtr = _split_proj(cfg, zxbcdt)
+    z, xb, bmat, cmat, dtr = _split_proj(zxbcdt, din, n)
 
     w = p["conv_w"].float()
     k = w.shape[0]
@@ -152,3 +166,72 @@ def apply_ssm_decode(cfg, p, x, state, conv_cache):
                                                                   None]
     y = (y.reshape(b, 1, din) * F.silu(z.float())).to(x.dtype)
     return y @ p["out_proj"], state, conv_cache
+
+
+def _head_params(cfg, p, h0: int, hl: int) -> dict:
+    """The params of heads [h0, h0 + hl): their z, x and dt columns of
+    in_proj with the shared B and C, their conv channels, A, dt bias and D
+    skip, and their rows of out_proj."""
+    din, _, hd, n = _dims(cfg)
+    c0, c1 = h0 * hd, (h0 + hl) * hd
+    dev = p["in_proj"].device
+    cols = torch.cat([torch.arange(c0, c1), din + torch.arange(c0, c1),
+                      2 * din + torch.arange(2 * n),
+                      2 * din + 2 * n + torch.arange(h0, h0 + hl)]).to(dev)
+    return {"in_proj": p["in_proj"][:, cols],
+            "conv_w": p["conv_w"][:, c0:c1], "conv_b": p["conv_b"][c0:c1],
+            "a_log": p["a_log"][h0:h0 + hl],
+            "dt_bias": p["dt_bias"][h0:h0 + hl],
+            "dskip": p["dskip"][h0:h0 + hl],
+            "out_proj": p["out_proj"][c0:c1]}
+
+
+def _on_heads(cfg, fn, x, p, *state):
+    """``fn(cfg, p, x, *state)`` (``apply_ssm`` or ``apply_ssm_decode``) on
+    DTensors, in the layout JAX's ``ssm_intra`` hook pins: each rank runs
+    its batch rows (split over the data axes) and its heads (split over
+    "model" when they divide it), with the layer's params whole, the heads'
+    slices taken locally (``_head_params``). The output is a partial sum
+    over "model" (out_proj's rows are split), the states are split by head
+    and the conv tails by channel, as ``cache_specs`` lays them out. Heads
+    that "model" does not divide run whole on every model rank
+    (``sharding.on_local_rows``)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    names = list(mesh.mesh_dim_names)
+    _, nh, _, _ = _dims(cfg)
+    md = names.index("model") if "model" in names else None
+    if md is None or nh % mesh.size(md):
+        return on_local_rows(lambda xl, pl, *sl: fn(cfg, pl, xl, *sl), x, p,
+                             *state, n_out=3)
+    m = mesh.size(md)
+    hl = nh // m
+    r = mesh.get_local_rank("model")
+    rows = [pl if (pl == Shard(0) and i != md) else Replicate()
+            for i, pl in enumerate(x.placements)]
+    rep = [Replicate()] * mesh.ndim
+
+    def with_model(pl):
+        return [pl if i == md else rows[i] for i in range(mesh.ndim)]
+
+    y_p = with_model(Partial())        # and x's gradient: every head reads x
+    h_p = with_model(Shard(1))               # states [B, H, N, hd]
+    c_p = with_model(Shard(2))               # conv tails [B, K-1, din]
+    grad = [Partial() if pl == Shard(0) or i == md else Replicate()
+            for i, pl in enumerate(rows)]
+    keys = list(p.keys())
+    ps = [p[k].redistribute(mesh, rep) for k in keys]
+    st = [t.redistribute(mesh, pl) for t, pl in zip(state, (h_p, c_p))]
+
+    def local(xl, *rest):
+        pl = _head_params(cfg, dict(zip(keys, rest[:len(keys)])), r * hl, hl)
+        return fn(cfg, pl, xl, *rest[len(keys):])
+
+    return local_map(
+        local, out_placements=(y_p, h_p, c_p),
+        in_placements=(rows, *[rep] * len(keys), *(h_p, c_p)[:len(st)]),
+        in_grad_placements=(with_model(Partial()), *[grad] * len(keys),
+                            *(h_p, c_p)[:len(st)]),
+        device_mesh=mesh)(x.redistribute(mesh, rows), *ps, *st)

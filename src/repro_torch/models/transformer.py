@@ -34,6 +34,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.parallel import sharding as sh
 
 # ----------------------------------------------------------------------------
 # patterns
@@ -116,11 +117,19 @@ def _ffn(cfg, kind, p, x):
         f = L.apply_mlp(cfg, p["mlp"], h2)
     if cfg.sandwich_norm:
         f = L.apply_norm(cfg, p["post2"], f)
-    return x + f, aux
+    return _residual(x, f), aux
+
+
+def _residual(x, y):
+    """x + y, pinned by the "hidden" hook: on DTensors a row-parallel
+    product leaves y a partial sum, which DTensor would carry down the
+    residual stream (GSPMD reduces it here)."""
+    return sh.shard_activation(x + y, "hidden")
 
 
 def _layer_fwd(cfg, kind, p, x, positions, *, want_cache: bool):
     """Full-sequence layer. Returns (x', cache_entry | None, aux_loss)."""
+    p = sh.fsdp_gather(p)
     h = L.apply_norm(cfg, p["norm1"], x)
     aux = 0.0
     if kind in ATTN_KINDS:
@@ -128,14 +137,15 @@ def _layer_fwd(cfg, kind, p, x, positions, *, want_cache: bool):
                                      window=_layer_kind_window(cfg, kind))
         if cfg.sandwich_norm:
             a = L.apply_norm(cfg, p["post1"], a)
-        x, aux = _ffn(cfg, kind, p, x + a)
+        x, aux = _ffn(cfg, kind, p, _residual(x, a))
     elif kind == "ssm":
         y, state, conv = ssm_mod.apply_ssm(cfg, p["ssm"], h)
-        x, cache = x + y, (state, conv)
+        x, cache = _residual(x, y), (state, conv)
     elif kind == "rec":
         y, hlast, conv = rglru.apply_rglru(cfg, p["rec"], h)
-        x = x + y
-        x = x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
+        x = _residual(x, y)
+        x = _residual(x, L.apply_mlp(cfg, p["mlp"],
+                                     L.apply_norm(cfg, p["norm2"], x)))
         cache = (hlast, conv)
     else:
         raise ValueError(kind)
@@ -146,6 +156,7 @@ def _layer_decode(cfg, kind, p, x, cache, pos):
     """One-token layer step. Returns (x', cache'): an attention layer
     writes its k/v slot into ``cache`` in place; a state layer returns new
     tensors, as JAX's do, and ``trunk_decode`` copies them in."""
+    p = sh.fsdp_gather(p)
     h = L.apply_norm(cfg, p["norm1"], x)
     if kind in ATTN_KINDS:
         ck, cv = cache
@@ -153,18 +164,19 @@ def _layer_decode(cfg, kind, p, x, cache, pos):
                                      window=_layer_kind_window(cfg, kind))
         if cfg.sandwich_norm:
             a = L.apply_norm(cfg, p["post1"], a)
-        x, _ = _ffn(cfg, kind, p, x + a)
+        x, _ = _ffn(cfg, kind, p, _residual(x, a))
         return x, (ck, cv)
     if kind == "ssm":
         state, conv = cache
         y, state, conv = ssm_mod.apply_ssm_decode(cfg, p["ssm"], h, state,
                                                   conv)
-        return x + y, (state, conv)
+        return _residual(x, y), (state, conv)
     if kind == "rec":
         hr, conv = cache
         y, hr, conv = rglru.apply_rglru_decode(cfg, p["rec"], h, hr, conv)
-        x = x + y
-        x = x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
+        x = _residual(x, y)
+        x = _residual(x, L.apply_mlp(cfg, p["mlp"],
+                                     L.apply_norm(cfg, p["norm2"], x)))
         return x, (hr, conv)
     raise ValueError(kind)
 
@@ -205,6 +217,7 @@ def trunk_fwd(cfg, params, x, positions, *, want_cache: bool,
     for (si, _), members in itertools.groupby(_walk(cfg, params),
                                               key=lambda e: e[:2]):
         def group_fwd(x, aux, members=tuple(members)):
+            x = sh.shard_activation(x, "hidden")
             caches = []
             for _, _, li, kind, p in members:
                 x, cache, a = _layer_fwd(cfg, kind, p, x, positions,

@@ -46,8 +46,8 @@ def init(params) -> AdamWState:
     leaves = named_leaves(params)
     dev = next(iter(leaves.values())).device
 
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros(p):       # a DTensor's moments take its placement
+        return torch.zeros_like(p, dtype=torch.float32)
 
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       mu={n: zeros(p) for n, p in leaves.items()},

@@ -1,5 +1,6 @@
-"""Collectives of the single-controller mesh: the port of
-``repro.parallel.collectives`` for the graph engines.
+"""Collectives: the port of ``repro.parallel.collectives``. The graph
+engines' single-controller collectives, and ``psum_hierarchical`` over the
+ranks of a ``DeviceMesh``.
 
 JAX runs these inside ``shard_map`` on one value per device. Here a
 collective is a plain function over the list of per-shard tensors (one
@@ -71,3 +72,18 @@ def all_reduce_or(parts, device=None) -> torch.Tensor:
     BFS): the int32 sum of the parts, > 0."""
     return psum([None if p is None else p.to(torch.int32) for p in parts],
                 device) > 0
+
+
+def psum_hierarchical(x: torch.Tensor, *, mesh, fast_axes,
+                      slow_axes=()) -> torch.Tensor:
+    """Sum this process's ``x`` over the named axes of a ``DeviceMesh``:
+    the fast (intra-pod) axes first, then the slow (cross-pod) ones, one
+    all-reduce per axis over ``mesh.get_group(axis)``. Unlike the list
+    collectives above, this is the multi-process form (JAX's runs inside
+    ``shard_map``): every rank of the mesh calls it with its own ``x``
+    and gets the sum."""
+    import torch.distributed._functional_collectives as fc
+
+    for a in tuple(fast_axes) + tuple(slow_axes):
+        x = fc.all_reduce(x, "sum", mesh.get_group(a))
+    return x

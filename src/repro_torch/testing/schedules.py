@@ -30,9 +30,12 @@ Layers:
     recovered from the trace's WAL + checkpoint reproduces the pre-crash
     published prefix bit for bit.
 
-The JAX module's hypothesis strategy factories, ``shrink_schedule``,
-``Schedule.pretty`` and ``run_and_check`` have no caller in the port yet
-(ROADMAP.md queue A11). With ``mesh=`` the pool runs a mesh-sharded state
+The layers above are wrapped for property suites as in JAX: the strategy
+factories ``op_strategy`` / ``batch_strategy`` / ``batch_lists_strategy``
+(over hypothesis or ``testing.proptest``; ``schedule_from_batches`` makes a
+schedule of their draws), ``run_and_check`` (run then
+check) and ``shrink_schedule`` (a deterministic minimizer, printed with
+``Schedule.pretty``). With ``mesh=`` the pool runs a mesh-sharded state
 (``core.partition``) and recovery lands on the same mesh; every check reads
 the gathered state, as the JAX harness does.
 """
@@ -48,9 +51,9 @@ import numpy as np
 from repro_torch.convert import state_to_numpy
 from repro_torch.core import partition
 from repro_torch.core.graph import (OP_ADD_E, OP_ADD_V, OP_CON_E, OP_CON_V,
-                                    OP_REM_E, OP_REM_V, R_TABLE_FULL,
-                                    GraphState, grow, make_graph,
-                                    make_op_batch)
+                                    OP_REM_E, OP_REM_V, OPCODE_NAMES,
+                                    R_TABLE_FULL, GraphState, grow,
+                                    make_graph, make_op_batch)
 from repro_torch.core.oracle import GraphOracle
 from repro_torch.core.ops import apply_ops
 from repro_torch.core.snapshot import get_paths_session
@@ -80,6 +83,37 @@ from repro_torch.runtime.wal import WriteAheadLog
 @dataclass
 class Schedule:
     steps: list = field(default_factory=list)
+
+    def submits(self):
+        return [s for s in self.steps if s[0] == "submit"]
+
+    def pretty(self) -> str:
+        """Readable transcript: what a shrunk counterexample prints as."""
+        lines = []
+        for i, s in enumerate(self.steps):
+            if s[0] == "submit":
+                ops = ", ".join(_op_str(op) for op in s[2])
+                lines.append(f"{i:3d}  submit {s[1]:<8} [{ops}]")
+            elif s[0] in ("read", "read_epoch"):
+                pairs = ", ".join(f"{k}->{l}" for k, l in s[1])
+                lines.append(f"{i:3d}  {s[0]:<6} {pairs}")
+            elif s[0] == "tt":
+                pairs = ", ".join(f"{k}->{l}" for k, l in s[2])
+                lines.append(f"{i:3d}  tt -{s[1]:<4} {pairs}")
+            else:
+                lines.append(f"{i:3d}  {s[0]}")
+        return "\n".join(lines)
+
+
+def _op_str(op) -> str:
+    name = OPCODE_NAMES.get(op[0], f"op{op[0]}")
+    body = "/".join(str(x) for x in op[1:3][: 2 if op[0] in _EDGE_OPS else 1])
+    cas = f" cas={op[3]}" if len(op) > 3 and op[3] >= 0 else ""
+    return f"{name} {body}{cas}"
+
+
+_EDGE_OPS = (OP_ADD_E, OP_REM_E, OP_CON_E)
+_ALL_OPS = (OP_ADD_V, OP_REM_V, OP_CON_V, OP_ADD_E, OP_REM_E, OP_CON_E)
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +231,47 @@ def enumerate_interleavings(programs, *, pump_after_each=True, limit=64):
         count += 1
         if count >= limit:
             return
+
+
+# ---------------------------------------------------------------------------
+# Hypothesis-style strategy factories (shared with the engine prop suites)
+# ---------------------------------------------------------------------------
+def op_strategy(st, *, max_key=5, cas_choices=(-1, -1, -1, 0, 1, 2)):
+    """(opcode, k1, k2, expect) strategy over a small colliding key space.
+
+    ``st`` is either the real ``hypothesis.strategies`` or the
+    ``repro_torch.testing.proptest`` fallback: both expose the same
+    factories."""
+    keys = st.integers(min_value=0, max_value=max_key)
+    opc = st.sampled_from(list(_ALL_OPS))
+    return st.tuples(opc, keys, keys, st.sampled_from(list(cas_choices)))
+
+
+def batch_strategy(st, *, min_size=1, max_size=10, **op_kw):
+    return st.lists(op_strategy(st, **op_kw), min_size=min_size,
+                    max_size=max_size)
+
+
+def batch_lists_strategy(st, *, min_batches=1, max_batches=4, **batch_kw):
+    """Lists of op batches: the engine property suites' input shape."""
+    return st.lists(batch_strategy(st, **batch_kw), min_size=min_batches,
+                    max_size=max_batches)
+
+
+def schedule_from_batches(op_lists, *, clients=3) -> Schedule:
+    """A schedule of ``batch_lists_strategy``'s draws (the port's own
+    helper; the JAX suites feed those draws to the engines directly): batch
+    i is client ``i % clients``'s next submission, each followed by one
+    admission round and a reachability read of the batch's first (k1, k2)
+    pairs on the published epoch, and the queue drained at the end."""
+    steps = []
+    for i, ops in enumerate(op_lists):
+        ops = [tuple(int(x) for x in op) for op in ops]
+        steps.append(("submit", f"c{i % clients}", ops))
+        steps.append(("pump",))
+        steps.append(("read", [(op[1], op[2]) for op in ops[:2]]))
+    steps.append(("flush",))
+    return Schedule(steps)
 
 
 # ---------------------------------------------------------------------------
@@ -611,3 +686,52 @@ def check_recovery_equivalent(trace: Trace, recovered=None):
                          "recovered state diverges from the serial replay "
                          "of its own linearization")
     return recovered
+
+
+# ---------------------------------------------------------------------------
+# Deterministic shrinking
+# ---------------------------------------------------------------------------
+def shrink_schedule(schedule: Schedule, still_fails) -> Schedule:
+    """Greedy deterministic minimizer: repeatedly drop whole steps, then
+    single ops inside submit steps, keeping any deletion under which
+    ``still_fails(schedule)`` stays True. Deterministic (first-to-last
+    scan to fixpoint), so a seeded failure always shrinks to the same
+    readable counterexample."""
+    cur = schedule
+    changed = True
+    while changed:
+        changed = False
+        # pass 1: drop whole steps
+        i = 0
+        while i < len(cur.steps):
+            cand = Schedule(cur.steps[:i] + cur.steps[i + 1:])
+            if cand.steps and still_fails(cand):
+                cur, changed = cand, True
+            else:
+                i += 1
+        # pass 2: drop individual lanes from submit steps
+        i = 0
+        while i < len(cur.steps):
+            step = cur.steps[i]
+            if step[0] == "submit" and len(step[2]) > 1:
+                j = 0
+                while j < len(step[2]):
+                    ops = step[2][:j] + step[2][j + 1:]
+                    cand = Schedule(cur.steps[:i]
+                                    + [("submit", step[1], ops)]
+                                    + cur.steps[i + 1:])
+                    if still_fails(cand):
+                        cur, changed = cand, True
+                        step = cur.steps[i]
+                    else:
+                        j += 1
+            i += 1
+    return cur
+
+
+def run_and_check(schedule: Schedule, **run_kw) -> Trace:
+    """Execute + full linearizability check: the single entry point the
+    property suites call (and ``shrink_schedule`` predicates wrap)."""
+    trace = run_schedule(schedule, **run_kw)
+    check_trace_linearizable(trace)
+    return trace

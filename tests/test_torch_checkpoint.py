@@ -4,7 +4,7 @@ package's (repro.checkpoint): the checkpointer tests of
 retention, atomic publish, a mid-write crash restores the previous step
 and the stale tmp dir is swept, blocking publish, a background failure
 surfacing on ``wait``, ``restore_raw`` with a varying leaf count,
-``shardings=`` raising), the device -> host copy made before ``save``
+``shardings=`` placing DTensors on a one-process mesh), the device -> host copy made before ``save``
 returns, and one graph checkpoint written by each package's ingest pool
 on the same schedule: identical ``.npy`` bytes, manifests equal apart
 from ``time``, and each package restores the other's step."""
@@ -128,12 +128,39 @@ def test_restore_raw_loads_variable_leaf_count(tmp_path):
 
 
 def test_sharded_restore_waits_for_a10(tmp_path):
+    """``restore(shardings=)`` on the (1, 1) mesh of a one-process gloo
+    group: a leaf with a ``NamedSharding`` comes back a DTensor on it whose
+    local tensor is the file's bytes (bf16 through the int16 view), a None
+    leaf a plain tensor; a shardings tree of another size, or a template
+    of another structure, raises."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharding as sh
+
     ck = Checkpointer(str(tmp_path))
-    ck.save(1, {"w": torch.ones(2)}, blocking=True)
-    # the only JAX caller of a sharded restore is the LM train loop, so
-    # it waits for the LM stack (ROADMAP.md queue A12)
-    with pytest.raises(TypeError, match="A12"):
-        ck.restore({"w": torch.ones(2)}, shardings={"w": None}, **CPU)
+    w = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+    b = torch.linspace(-1, 1, 6).to(torch.bfloat16)
+    ck.save(1, {"b": b, "w": w, "n": torch.tensor([7])}, blocking=True)
+    mesh = make_host_mesh(device_type="cpu")
+    try:
+        named = sh.to_named({"b": sh.P("data"), "w": sh.P(None, "model")},
+                            mesh)
+        tree, manifest = ck.restore(
+            {"b": b, "w": w, "n": torch.tensor([0])},
+            shardings={"b": named["b"], "w": named["w"], "n": None}, **CPU)
+        assert manifest["step"] == 1
+        for k, want in (("b", b), ("w", w)):
+            assert tree[k].device_mesh == mesh
+            assert tree[k].placements == named[k].placements
+            assert torch.equal(tree[k].to_local().view(torch.uint8),
+                               want.view(torch.uint8))
+        assert type(tree["n"]) is torch.Tensor and int(tree["n"][0]) == 7
+        with pytest.raises(ValueError, match="shardings have"):
+            ck.restore({"b": b, "w": w, "n": w}, shardings={"b": None},
+                       **CPU)
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError, match="tree structure"):
         ck.restore([torch.ones(2), torch.ones(2)], **CPU)
 

@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-nothing of JAX and nothing of the JAX package ``repro``, and the entry
+"""The port stands alone: ``repro_torch``, the ``examples/*_torch.py`` and
+``chip_smoke.py`` import nothing of JAX and nothing of the JAX package
+``repro``, importing the port starts no process group, and the entry
 points place state on the card unless the caller names another device."""
 import ast
 import os
@@ -28,11 +29,12 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 def test_no_source_file_imports_jax_or_the_jax_package():
-    files = (sorted(PORT.rglob("*.py")) + [ROOT / "examples" /
-                                           "train_path_lm_torch.py"]
-             + [ROOT / "chip_smoke.py"])
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert len(examples) == 4
+    files = sorted(PORT.rglob("*.py")) + examples + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
-    names = {str(f.relative_to(PORT)) for f in files[:-2]}
+    names = {str(f.relative_to(PORT)) for f in files
+             if f.is_relative_to(PORT)}
     assert {"runtime/wal.py", "runtime/recovery.py",
             "checkpoint/checkpointer.py", "testing/schedules.py",
             "launch/durable_serve.py", "core/partition.py",
@@ -45,7 +47,8 @@ def test_no_source_file_imports_jax_or_the_jax_package():
             "data/tokenizer.py", "data/pathgen.py", "data/pipeline.py",
             "optim/adamw.py", "optim/grad_compress.py", "optim/schedule.py",
             "launch/steps.py", "launch/train.py",
-            "runtime/train_loop.py"} <= names
+            "runtime/train_loop.py", "launch/mesh.py", "launch/dryrun.py",
+            "testing/proptest.py"} <= names
     for f in files:
         bad = _imported_roots(f) & set(FORBIDDEN)
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
@@ -76,6 +79,10 @@ def test_importing_the_port_loads_no_jax_module():
         "import repro_torch.data, repro_torch.optim\n"
         "import repro_torch.launch.steps, repro_torch.launch.train\n"
         "import repro_torch.runtime.train_loop\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.dryrun\n"
+        "import repro_torch.testing.proptest\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "from repro_torch.configs import ARCHS, get_config\n"
         "[get_config(a) for a in ARCHS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

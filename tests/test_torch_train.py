@@ -355,10 +355,53 @@ def test_compressed_train_step_matches_jax():
         assert np.abs(r - jr).max() <= 2.02 * np.abs(jr).max()
 
 
+def _host_mesh():
+    """The (1, 1) mesh of a one-process gloo group (the caller destroys
+    the group)."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    return make_host_mesh(device_type="cpu")
+
+
 def test_the_one_device_step_refuses_gradient_shardings():
-    _, _, tm, _ = _pair("olmo-1b")
-    with pytest.raises(TypeError, match=r"A12 \(iv\)"):
-        steps.make_train_step(tm, grad_specs={})
+    """``grad_specs`` pins every gradient to its parameter's placement: on
+    a (1, 1) mesh, DTensor params and batch, a microbatched step equals
+    the plain step bit for bit, and each moment keeps its parameter's
+    placement."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.runtime.train_loop import (distribute_params,
+                                                train_shardings)
+
+    tm = build_model(TC.get_config("olmo-1b").smoke())
+    tp, tq = (tm.init(torch.Generator("cpu").manual_seed(1))
+              for _ in range(2))
+    toks = torch.from_numpy(_tokens(tm.cfg, b=4))
+    want_p, want_s, want_m = steps.make_train_step(tm, microbatches=2)(
+        tp, steps.init_opt_state(tp), {"tokens": toks})
+    mesh = _host_mesh()
+    try:
+        shardings = train_shardings(tm.cfg, tq, mesh)[0]
+        distribute_params(tq, shardings)
+        batch = {"tokens": sh.distribute(toks, sh.to_named(
+            sh.batch_spec(mesh, "tokens", tuple(toks.shape)), mesh))}
+        sh.set_activation_mesh(mesh)
+        try:
+            got_p, got_s, got_m = steps.make_train_step(
+                tm, microbatches=2, grad_specs=shardings)(
+                    tq, steps.init_opt_state(tq), batch)
+        finally:
+            sh.set_activation_mesh(None)
+        assert torch.equal(got_m["loss"].full_tensor(), want_m["loss"])
+        for (n, a), b in zip(got_p.named_parameters(), want_p.parameters(),
+                             strict=True):
+            assert a.placements == shardings[n].placements
+            assert torch.equal(_bits(a.to_local()), _bits(b)), n
+            assert got_s.mu[n].placements == a.placements
+            assert torch.equal(got_s.nu[n].to_local(), want_s.nu[n]), n
+    finally:
+        dist.destroy_process_group()
 
 
 # ----------------------------------------------------------------------------
@@ -532,12 +575,43 @@ def test_each_package_resumes_from_the_other_s_directory(tmp_path):
 
 
 def test_train_runs_on_one_device(tmp_path):
-    _, _, tm, tp = _pair("olmo-1b")
-    for kw in ({"mesh": object()}, {"shardings": {}}):
-        with pytest.raises(TypeError, match=r"A12 \(iv\)"):
-            train(tm, SyntheticLMData(64), batch_size=2, seq_len=8,
-                  cfg=TrainLoopConfig(checkpoint_dir=str(tmp_path)),
-                  params=tp, **kw)
+    """``train(mesh=)`` on the (1, 1) mesh of one process: the same losses,
+    params, moments and checkpoint bytes as the run without a mesh, bit
+    for bit (every collective is the identity), with the params DTensors
+    on the mesh; then a resume of the meshed directory restores onto the
+    mesh (``restore(shardings=)``) and runs on."""
+    import torch.distributed as dist
+
+    tm = build_model(TC.get_config("olmo-1b").smoke())
+    data = SyntheticLMData(tm.cfg.vocab)
+
+    def run(name, steps_, mesh=None, seed=0):
+        return train(tm, data, batch_size=2, seq_len=32,
+                     cfg=_loop(tmp_path, name, steps_),
+                     params=tm.init(torch.Generator("cpu").manual_seed(seed)),
+                     mesh=mesh, log=lambda *_: None)
+
+    p0, s0, h0 = run("plain", 2)
+    mesh = _host_mesh()
+    try:
+        p1, s1, h1 = run("mesh", 2, mesh)
+        assert [l for _, l, _ in h1] == [l for _, l, _ in h0]
+        for (n, a), b in zip(p1.named_parameters(), p0.parameters(),
+                             strict=True):
+            assert a.device_mesh == mesh
+            assert torch.equal(_bits(a.to_local()), _bits(b)), n
+            assert torch.equal(s1.mu[n].to_local(), s0.mu[n]), n
+        step2 = "step_000000002"
+        for f in os.listdir(tmp_path / "plain" / step2):
+            if f.endswith(".npy"):
+                assert filecmp.cmp(tmp_path / "plain" / step2 / f,
+                                   tmp_path / "mesh" / step2 / f,
+                                   shallow=False), f
+        p2, s2, h2 = run("mesh", 3, mesh, seed=9)     # resumes at step 2
+        assert [s for s, _, _ in h2] == [3] and int(s2.step) == 3
+        assert all(hasattr(p, "placements") for p in p2.parameters())
+    finally:
+        dist.destroy_process_group()
 
 
 def test_adamw_state_crosses_both_ways():
