@@ -3822,16 +3822,18 @@ def example_answers(out: str) -> list:
     return lines
 
 
-def mesh_run(torch, model, mesh, root: Path, steps_n: int, seed: int,
-             base_mem: int):
+def mesh_run(torch, model, mesh, root: Path, steps_n: int, seed: int):
     """One ``train()`` resumed from the step in ``root`` to ``steps_n``,
     on ``mesh`` or (None) without one; its own last step is removed after
-    it. Returns (params, opt_state, losses, step walls, launches, peak,
-    wall s)."""
+    it. Returns (params, opt_state, losses, step walls, launches, peak
+    memory above what was held before its params were made, wall s)."""
     from repro_torch.data.pipeline import GraphPathData
     from repro_torch.runtime.train_loop import (TrainLoopConfig, train,
                                                 train_shardings)
 
+    sync(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
     params = model.init(torch.Generator(DEVICE).manual_seed(seed))
     kw = ({} if mesh is None else
           {"mesh": mesh, "shardings": train_shardings(model.cfg, params,
@@ -3840,7 +3842,6 @@ def mesh_run(torch, model, mesh, root: Path, steps_n: int, seed: int,
                          log_every=1, checkpoint_dir=str(root), lr=TRAIN_LR)
     marks = []
     sync(torch)
-    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     p, o, hist = train(model, GraphPathData(seed=0, device=DEVICE),
@@ -3886,11 +3887,9 @@ def mesh_train(torch, card, seed: int, total: dict):
     if LM_SMOKE:
         cfg = cfg.smoke()
     model = build_model(cfg)
-    mesh = make_host_mesh(device_type="cuda" if DEVICE == "cuda" else "cpu")
+    mesh = make_host_mesh(device_type=DEVICE)
     steps_n = start + MESH_STEPS
     try:
-        sync(torch)
-        base_mem = torch.cuda.memory_allocated()
         # restore(shardings=) alone: every leaf's local tensor is the file
         params = model.init(torch.Generator(DEVICE).manual_seed(seed))
         n_params = sum(p.numel() for p in params.parameters())
@@ -3915,7 +3914,7 @@ def mesh_train(torch, card, seed: int, total: dict):
             f"every local tensor equal to its file bit for bit")
 
         pm, om, lm, wm, nm, km, sm = mesh_run(torch, model, mesh, src.parent,
-                                              steps_n, seed, base_mem)
+                                              steps_n, seed)
         require_launched(nm, ("B2",), "inside train(mesh=)")
         for k in total:
             total[k] += nm[k]
@@ -3924,8 +3923,7 @@ def mesh_train(torch, card, seed: int, total: dict):
         placed = sorted({tuple(str(x) for x in q.placements)
                          for q in pm.parameters()})
         pp, op, lp, wp, npl, kp, sp = mesh_run(torch, model, None,
-                                               src.parent, steps_n, seed,
-                                               base_mem)
+                                               src.parent, steps_n, seed)
         del op
         diffs = [(n, float((a.to_local().float() - b.float()).abs().max()))
                  for (n, a), b in zip(pm.named_parameters(), pp.parameters(),
@@ -3989,7 +3987,7 @@ def mesh_train(torch, card, seed: int, total: dict):
         + f"); {tokens / med_m * 1e3:.1f} / {tokens / med_p * 1e3:.1f} "
         f"tokens/s; train() wall (restore, steps, save) {sm:.1f} / "
         f"{sp:.1f} s; peak device memory {km / 1e9:.3f} / {kp / 1e9:.3f} GB "
-        f"above the phase's start; launches inside train(mesh=) {nm}, "
+        f"above each run's start; launches inside train(mesh=) {nm}, "
         f"without {npl}; {card}")
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:4]
     log(f"profile mesh_train_step: wall {pwall:.3f} ms under the profiler, "

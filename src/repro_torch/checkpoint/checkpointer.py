@@ -40,9 +40,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 from torch.utils import _pytree as pytree
 
 from repro_torch.core.graph import resolve_device
+from repro_torch.parallel.sharding import NamedSharding, distribute
 
 
 def _node_str(spec) -> str | None:
@@ -98,16 +101,13 @@ def to_host(x) -> np.ndarray:
 
 
 def _is_dtensor(x) -> bool:
-    from torch.distributed.tensor import DTensor
-
     return isinstance(x, DTensor)
 
 
 def _writes(leaves) -> bool:
-    """Whether this process writes a tree it has gathered: every process
-    of a tree of DTensors gathers it, only global rank 0 writes it."""
-    import torch.distributed as dist
-
+    """Whether this process writes a tree of DTensors: every process
+    takes part in gathering each leaf, only global rank 0 copies it to the
+    host and writes it."""
     if not any(_is_dtensor(x) for x in leaves):
         return True
     return not dist.is_initialized() or dist.get_rank() == 0
@@ -181,9 +181,12 @@ class Checkpointer:
         """
         self.wait()
         leaves, spec = pytree.tree_flatten(tree)
-        host_leaves = [to_host(x) for x in leaves]    # device -> host now
         if not _writes(leaves):
+            for x in leaves:       # take part in each leaf's gather only
+                if _is_dtensor(x):
+                    x.full_tensor()
             return
+        host_leaves = [to_host(x) for x in leaves]    # device -> host now
         manifest = {
             "step": int(step),
             "treedef": _treedef_str(spec),
@@ -293,8 +296,6 @@ class Checkpointer:
         out of the file on the host and moving only that to its device
         (the elastic re-placement of JAX's ``device_put`` on a
         ``NamedSharding``; the saving mesh may differ)."""
-        from repro_torch.parallel.sharding import NamedSharding, distribute
-
         dev = resolve_device(device)
         shard_leaves = None
         if shardings is not None:

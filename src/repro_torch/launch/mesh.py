@@ -18,32 +18,31 @@ import torch
 import torch.distributed as dist
 
 
-def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cpu"):
+def make_production_mesh(*, multi_pod: bool = False):
     """The production mesh over the current group's ranks: one pod =
     16 x 16 = 256 devices; two pods = 512.
 
     Axes: ("data", "model") single-pod; ("pod", "data", "model")
     multi-pod. "model" (TP/EP) stays inside a pod; "pod" x "data" carry
-    FSDP/DP. The group must have exactly that many ranks."""
+    FSDP/DP. The group must have exactly that many ranks. Its only user
+    is the dry run's "fake" group, whose ranks are CPU stand-ins."""
     from torch.distributed.device_mesh import init_device_mesh
 
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+    return init_device_mesh("cpu", shape, mesh_dim_names=axes)
 
 
-def make_host_mesh(model_parallel: int = 1, device_type: str | None = None):
+def make_host_mesh(model_parallel: int = 1, device_type: str = "cuda"):
     """Dev mesh ("data", "model") over the current process group's ranks
     (tests, examples). With no group yet it starts a group of one process
     on an in-memory store (``nccl`` for the card, ``gloo`` for the CPU),
     so one process on one card gets the (1, 1) mesh with no network and
-    no launcher. ``device_type`` defaults to "cuda" when a card is
-    visible, else "cpu". A ``model_parallel`` that does not divide the
+    no launcher. The mesh is on the card unless ``device_type="cpu"``
+    asks for the CPU. A ``model_parallel`` that does not divide the
     world size raises."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
     if not dist.is_initialized():
         backend = "nccl" if device_type == "cuda" else "gloo"
         if device_type == "cuda":

@@ -31,9 +31,13 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+import torch.distributed._functional_collectives as fc
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models.layers import (apply_rope, dense_init, dtype_of,
                                        pdict, softcap)
+from repro_torch.parallel import sharding as sh
 
 NEG_INF = -2.3819763e38
 
@@ -66,8 +70,6 @@ def _split_heads(x, n: int, hd: int):
     """[B, S, n * hd] -> [B, S, n, hd]. A DTensor whose last dim is split
     over a mesh dim that does not divide ``n`` (whole heads) is first
     gathered on that dim: a split inside a head has no layout."""
-    from torch.distributed.tensor import DTensor
-
     if isinstance(x, DTensor):
         x = _whole_heads(x, n)
     return x.reshape(*x.shape[:-1], n, hd)
@@ -76,8 +78,6 @@ def _split_heads(x, n: int, hd: int):
 def _whole_heads(g, n: int):
     """``g`` [..., n * hd] with its last dim gathered on every mesh dim
     that does not divide ``n``."""
-    from torch.distributed.tensor import Replicate, Shard
-
     mesh = g.device_mesh
     pl = [Replicate() if pi == Shard(g.ndim - 1) and n % mesh.size(i)
           else pi for i, pi in enumerate(g.placements)]
@@ -88,8 +88,6 @@ def _merge_heads(x):
     """[B, S, n, hd] -> [B, S, n * hd]. On a DTensor the gradient coming
     back is gathered where it splits inside a head (the projection's
     backward may split it so), so that it unflattens."""
-    from torch.distributed.tensor import DTensor
-
     n = x.shape[2]
     out = x.reshape(*x.shape[:2], n * x.shape[3])
     if isinstance(out, DTensor) and out.requires_grad:
@@ -208,7 +206,7 @@ def _attend_chunked(cfg, q, k, v, *, causal: bool = True, window: int,
     kt = k.permute(0, 2, 1, 3).reshape(b * kv, t, hd)
     vt = v.permute(0, 2, 1, 3).reshape(b * kv, t, hd)
 
-    q_ids = q_pos0 + torch.arange(s, dtype=torch.int32, device=dev)
+    q_ids = torch.arange(q_pos0, q_pos0 + s, dtype=torch.int32, device=dev)
     m = torch.full((b * kv, g, s), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b * kv, g, s), dtype=torch.float32, device=dev)
     acc = torch.zeros((b * kv, g, s, hd), dtype=torch.float32, device=dev)
@@ -271,12 +269,8 @@ def _attend(cfg, q, k, v, *, causal: bool, window: int):
     (``local_map``), which needs no collective: a rank's query heads read
     the KV heads of their groups, a rank's query rows sit at its sequence
     offset."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-
     if not isinstance(q, DTensor):
         return _attend_chunked(cfg, q, k, v, causal=causal, window=window)
-    from repro_torch.parallel import sharding as sh
 
     mesh = q.device_mesh
     q = sh.shard_activation(q, "attn_q")
@@ -365,17 +359,13 @@ def attn_decode(cfg, p, x, cache_k, cache_v, pos, *, window=0):
     ids <= pos only gates the warm-up. DTensor caches (laid out by
     ``parallel.sharding.cache_specs``) take ``_decode_sharded``.
     """
-    from torch.distributed.tensor import DTensor
-
-    from repro_torch.parallel.sharding import replicate_like
-
     b = x.shape[0]
     L = cache_k.shape[1]
     pos = int(pos)
     ring = bool(window) and window <= L and L != 0 and window == L
     q = _project_q(cfg, p, x)              # [B,1,H,hd]
     k_new, v_new = _project_kv(cfg, p, x)  # [B,1,Kv,hd]
-    ppos = replicate_like(
+    ppos = sh.replicate_like(
         torch.full((1, 1), pos, dtype=torch.int32, device=x.device), q)
     q = apply_rope(cfg, q, ppos)
     k_new = apply_rope(cfg, k_new, ppos)
@@ -400,8 +390,6 @@ def _decode_core(cfg, q, k_new, v_new, cache_k, cache_v, pos, widx,
     group that holds the other blocks of the cache's length, reduced over
     (flash decoding: each block's partial softmax, then one max and two
     sums); None when this block is the whole length. -> [B,Kv,g,hd] f32."""
-    import torch.distributed._functional_collectives as fc
-
     b = q.shape[0]
     L = cache_k.shape[1]
     if l0 <= widx < l0 + L:
@@ -415,7 +403,7 @@ def _decode_core(cfg, q, k_new, v_new, cache_k, cache_v, pos, widx,
     sc = torch.stack([_bmm_f32(qf[:, j], cache_k[:, :, j].transpose(1, 2))
                       for j in range(kv)], dim=1)          # [B,Kv,g,L] f32
     sc = softcap(sc, cfg.attn_softcap)
-    ids = l0 + torch.arange(L, dtype=torch.int32, device=q.device)
+    ids = torch.arange(l0, l0 + L, dtype=torch.int32, device=q.device)
     mask = ids <= pos
     if window:
         mask &= (pos - ids) < window
@@ -440,9 +428,6 @@ def _decode_sharded(cfg, q, k_new, v_new, cache_k, cache_v, pos, widx,
     "model", with the query heads of their groups, or else the length over
     "model", each rank writing the slot only where it holds it and the
     softmax reduced over "model" (flash decoding). -> [B,1,H,hd] f32."""
-    from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-
     mesh = cache_k.device_mesh
     cp = list(cache_k.placements)
     md = _model_dim(mesh)

@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.parallel.sharding import replicate_like, shard_activation
+
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -63,8 +65,6 @@ def apply_norm(cfg, params, x):
     d, and a partial sum (a row-parallel product's output) would
     otherwise be split over rows by "model", a strided split the next
     products cannot take."""
-    from repro_torch.parallel.sharding import shard_activation
-
     x = shard_activation(x, "hidden")
     xf = x.float()
     if cfg.norm_type == "layernorm":
@@ -110,8 +110,6 @@ def rope_freqs(cfg, hd: int, device=None):
 def apply_rope(cfg, x, positions):
     """x: [..., S, H, hd]; positions: int tensor broadcastable to [..., S].
     Rotates the split halves (not interleaved pairs) in f32."""
-    from repro_torch.parallel.sharding import replicate_like
-
     hd = x.shape[-1]
     inv = replicate_like(rope_freqs(cfg, hd, x.device), positions)  # [hd/2]
     ang = positions[..., None].float() * inv              # [..., S, hd/2]

@@ -31,6 +31,9 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+import torch.distributed._functional_collectives as fc
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ArchConfig, shape_for
 from repro_torch.core.graph import resolve_device
@@ -44,8 +47,6 @@ def cross_entropy(logits, targets, mask=None):
     """logits: [B,S,V]; targets: [B,S] int; mask: [B,S] or None -> mean
     negative log-likelihood in f32, over the positions ``mask`` keeps (the
     mean over at least one position: an all-zero mask gives 0)."""
-    from torch.distributed.tensor import DTensor
-
     if isinstance(logits, DTensor):
         ll = _log_likelihood_sharded(logits, targets)
     else:
@@ -73,8 +74,6 @@ class _VocabParallelLL(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, lf, targets, v0, group):
-        import torch.distributed._functional_collectives as fc
-
         m = fc.all_reduce(lf.amax(-1), "max", group)
         e = torch.exp(lf - m[..., None])
         se = fc.all_reduce(e.sum(-1), "sum", group)
@@ -102,9 +101,6 @@ def _log_likelihood_sharded(logits, targets):
     (``local_map``), the vocab reduced over "model" where the ``logits``
     hook split it there; the result has the logits' layout without the
     vocab dim."""
-    from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-
     mesh = logits.device_mesh
     lp = list(logits.placements)
     tp = [Replicate() if p == Shard(2) else p for p in lp]

@@ -26,8 +26,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models.layers import _act, dense_init, dtype_of, pdict
+from repro_torch.parallel import sharding as sh
 
 DROP_FREE_ROWS = 4096   # a group with gs * k up to this keeps every token
 
@@ -118,8 +121,6 @@ def apply_moe_static(cfg, p, x, *, capacity_factor: float = 1.25):
     dispatch and combine run on each rank's batch rows (``local_map``,
     the router whole on every rank) and the buffers are pinned by the
     ``moe_dispatch4`` hook, experts over "model" when they divide it."""
-    from torch.distributed.tensor import DTensor
-
     b, s, d = x.shape
     cap = capacity(cfg, s, capacity_factor)
     if not isinstance(x, DTensor):
@@ -127,10 +128,6 @@ def apply_moe_static(cfg, p, x, *, capacity_factor: float = 1.25):
         xin = dispatch(cfg, r, x, cap)
         yo = _experts(cfg, p, xin).reshape(b, -1, d)
         return combine(cfg, r, yo, s), r["aux"].mean() * cfg.router_aux_coef
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-
-    from repro_torch.parallel import sharding as sh
 
     mesh = x.device_mesh
     # groups are batch rows: each rank routes its own rows, whole
@@ -180,10 +177,6 @@ def _experts(cfg, p, xin):
 def apply_moe(cfg, p, x, *, capacity_factor: float = 1.25):
     """x: [B, S, d] -> (y [B, S, d], aux_loss scalar). Group = batch row.
     With a mesh set (or on DTensors) this is ``apply_moe_static``."""
-    from torch.distributed.tensor import DTensor
-
-    from repro_torch.parallel import sharding as sh
-
     if sh.activation_mesh() is not None or isinstance(x, DTensor):
         return apply_moe_static(cfg, p, x, capacity_factor=capacity_factor)
     b, s, d = x.shape

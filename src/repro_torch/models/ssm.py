@@ -21,7 +21,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models.layers import dense_init, dtype_of, pdict
 from repro_torch.parallel.sharding import on_local_rows
@@ -196,9 +197,6 @@ def _on_heads(cfg, fn, x, p, *state):
     and the conv tails by channel, as ``cache_specs`` lays them out. Heads
     that "model" does not divide run whole on every model rank
     (``sharding.on_local_rows``)."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-
     mesh = x.device_mesh
     names = list(mesh.mesh_dim_names)
     _, nh, _, _ = _dims(cfg)

@@ -37,6 +37,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 GRAPH_ROW_AXIS = "rows"
 
@@ -329,8 +331,6 @@ class NamedSharding(NamedTuple):
 def stacked(shardings) -> NamedSharding:
     """The sharding of JAX's leaf stacked over layers whose shardings are
     ``shardings`` (all alike): the layer spec behind an unsplit lead."""
-    from torch.distributed.tensor import Shard
-
     s = shardings[0]
     return NamedSharding(s.mesh, P(None, *s.spec), tuple(
         Shard(p.dim + 1) if isinstance(p, Shard) else p
@@ -343,8 +343,6 @@ def placements(spec: P, mesh, ndim: int | None = None) -> tuple:
     ``Replicate()``. A tuple entry splits its dim over several mesh dims;
     DTensor splits in mesh-dim order, so the entry must list its axes in
     that order (JAX's rules always do), else this raises."""
-    from torch.distributed.tensor import Replicate, Shard
-
     names = list(mesh.mesh_dim_names)
     out = [Replicate()] * len(names)
     entries = tuple(spec) + (None,) * ((ndim or len(spec)) - len(spec))
@@ -381,8 +379,6 @@ def local_block(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     pieces and keeps this rank's, mesh dims in order (DTensor's layout).
     Worked out on the host from the mesh coordinate: torch's own helper
     computes offsets in tensors, which a fake tensor mode cannot read."""
-    from torch.distributed.tensor import Shard
-
     mesh = sharding.mesh
     coord = mesh.get_coordinate()
     start, size = [0] * x.ndim, list(x.shape)
@@ -402,8 +398,6 @@ def distribute(x: torch.Tensor, sharding: NamedSharding):
     the mesh's device (every rank passes the whole tensor; no
     communication). A block that already lies there contiguous is kept,
     not copied."""
-    from torch.distributed.tensor import DTensor
-
     local = local_block(x, sharding).to(mesh_device(sharding.mesh))
     return DTensor.from_local(local.contiguous(), sharding.mesh,
                               sharding.placements, run_check=False,
@@ -541,8 +535,6 @@ def shard_activation(x, kind: str):
     """Pin an activation's layout (and its gradient's). No-op when no mesh
     is set, and on a plain tensor: under a mesh that is one rank's block
     inside a ``local_map`` body, which has no global layout to pin."""
-    from torch.distributed.tensor import DTensor
-
     if _ACTIVE["mesh"] is None or not isinstance(x, DTensor):
         return x
     spec = activation_spec(tuple(x.shape), kind)
@@ -557,8 +549,6 @@ def fsdp_gather(params):
     the all-gather FSDP does before a layer, which GSPMD infers. Without a
     mesh, ``params`` itself. Called where a layer is computed (inside a
     remat group), so the gathered copy lives only while it is used."""
-    from torch.distributed.tensor import DTensor, Replicate
-
     mesh = _ACTIVE["mesh"]
     if mesh is None:
         return params
@@ -596,9 +586,6 @@ def on_local_rows(fn, x, params, *extra, n_out: int):
     parallel, no tensor parallelism. Each rank's parameter gradient covers
     its rows: a partial sum over the mesh dims that split them. On plain
     tensors, ``fn`` itself."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-
     if not isinstance(x, DTensor):
         return fn(x, params, *extra)
     mesh = x.device_mesh
@@ -623,8 +610,6 @@ def replicate_like(t: torch.Tensor, ref):
     """``t`` (a tensor every rank builds alike: positions, rotary tables)
     as a replicated DTensor on ``ref``'s mesh when ``ref`` is a DTensor,
     so that no plain tensor meets a distributed one; else ``t``."""
-    from torch.distributed.tensor import DTensor, Replicate
-
     if not isinstance(ref, DTensor):
         return t
     mesh = ref.device_mesh

@@ -22,6 +22,7 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.convert import from_jax_tree, to_jax_tree
@@ -81,12 +82,12 @@ def restore_train_state(ckpt: Checkpointer, cfg, params,
     return opt_state._replace(step=ts.step), manifest
 
 
-def train_shardings(cfg, params, mesh, mode: str = "train"):
+def train_shardings(cfg, params, mesh):
     """The (params, ``AdamWState``) shardings ``train`` takes: every
-    parameter and both of its moments on ``param_specs``' placement (the
-    moments inherit the params' layout, as JAX's shard-transparent AdamW
-    does); the step counter unsharded (None)."""
-    ps = sh.to_named(sh.param_specs(params, mesh, mode, cfg), mesh)
+    parameter and both of its moments on ``param_specs``' "train"
+    placement (the moments inherit the params' layout, as JAX's
+    shard-transparent AdamW does); the step counter unsharded (None)."""
+    ps = sh.to_named(sh.param_specs(params, mesh, "train", cfg), mesh)
     return ps, AdamWState(step=None, mu=ps, nu=ps)
 
 
@@ -115,8 +116,6 @@ def distribute_params(params, shardings: dict):
 
 
 def _scalar(x) -> float:
-    from torch.distributed.tensor import DTensor
-
     return float(x.full_tensor() if isinstance(x, DTensor) else x)
 
 
