@@ -16,7 +16,10 @@ Phases (each prints lines; the last line is the JSON result):
      row; B5 (packed edge writes) and B9
      (dense) against theirs over B in {1, 1024} lanes with duplicate
      targets, masked lanes parked out of range, column 31 and dense values
-     outside {0, 1}; B4 (packed label
+     outside {0, 1}, and on adversarial lanes (``edge_patterns``: every
+     firing lane on one target, the bits of 32 words set then cleared, one
+     row with distinct columns, every lane masked, firing lanes past the
+     last column, B = 0, the one-block cap and one past it); B4 (packed label
      join) and B8 (dense label join) against theirs and against each other
      over Q in {1, 5, 64, 1000}, L in {31, 32, 1024, 1030}, densities
      0 / 0.01 / 0.3, a common landmark in column 31 and all-zero OUT rows;
@@ -75,7 +78,11 @@ Phases (each prints lines; the last line is the JSON result):
      Q = 64 probe of the phase-7 index (B4); B8 on the same probe's labels
      unpacked to 0/1 rows; B5 on ``adj_packed`` and B9 on the dense view
      with the 1,024 lanes of one equal-mix batch's AddE/RemE slots (timed
-     in place; the public wrappers copy the matrix first). Beside them the
+     in place; the public wrappers copy the matrix first), and with the
+     lanes of 16,384 (``wide_*`` keys: the global-scratch path); B5 and B9
+     also against their plain versions there at B = cap + 1 and 65,536 on
+     random lanes; ``wrapper_ms``: the public wrapper's wall, its copy of
+     the matrix included. Beside them the
      plain versions' times and the bytes/operations bound, and each
      kernel's device time per sub-kernel (``device_sub_ms``); B6 also
      without parents on the same launches (``no_parents_*`` keys). B1 and
@@ -491,6 +498,7 @@ WIDE_BUDGET = 1 << 30        # the plain versions' transient at Q = 1,024
 BFS_KERNELS = ("B1", "B2", "B3")
 DENSE_KERNELS = ("B6", "B7")
 EDGE_KERNELS = ("B5", "B9")
+WIDE_EDGE_LANES = 16384      # B5/B9's global-scratch path, timed in phase 6
 MIX = (12.5, 12.5, 25, 12.5, 12.5, 25)   # AddV RemV HasV AddE RemE HasE
 DEVICE = "cuda"
 TRACE_DIR = ROOT / "build" / "chip_smoke_traces"
@@ -574,11 +582,11 @@ def equal_mix(rng, n_keys: int, lanes: int):
     return opc, rng.integers(0, n_keys, lanes), rng.integers(0, n_keys, lanes)
 
 
-def equal_mix_batch(rng, n_keys: int, device):
+def equal_mix_batch(rng, n_keys: int, device, lanes: int = LANES):
     from repro_torch.convert import op_batch_from_numpy
 
-    opc, k1, k2 = equal_mix(rng, n_keys, LANES)
-    return op_batch_from_numpy(opc, k1, k2, np.full(LANES, -1), device)
+    opc, k1, k2 = equal_mix(rng, n_keys, lanes)
+    return op_batch_from_numpy(opc, k1, k2, np.full(lanes, -1), device)
 
 
 def random_words(rng, v: int, density: float):
@@ -742,13 +750,65 @@ def edge_lanes(rng, v: int, b: int, device):
             for x in (rows, cols, vals, mask)]
 
 
-def phase_kernels(torch, rng, rng2, rng3):
+def edge_patterns(rng, v: int):
+    """name -> rows, cols, vals, mask (numpy int32) of adversarial
+    edge-write lanes on a v x v graph (W = ceil(v / 32) words a row)."""
+    from repro_torch.kernels.edge_update.ops import one_block_lanes
+
+    w = -(-v // 32)
+    b = 1024
+    out = {}
+    # every firing lane on one cell in column 31 (the sign bit), set and
+    # clear in turns; every third lane and the last masked, parked far off
+    rows, cols = np.full(b, v // 3), np.full(b, 31)
+    mask = np.ones(b)
+    mask[2::3] = mask[-1] = 0
+    rows[mask == 0], cols[mask == 0] = 10**6, -10**6
+    vals = np.zeros(b)
+    vals[mask > 0] = np.resize([1, 0], int(mask.sum()))
+    out["one target"] = (rows, cols, vals, mask)
+    # the 32 bits of 32 words of one row set, then cleared by later lanes
+    # in another order (2,048 lanes)
+    out["32 words set then cleared"] = (
+        np.full(2048, v - 2),
+        np.concatenate([rng.permutation(1024), rng.permutation(1024)]),
+        np.repeat([255, 0], 1024), np.ones(2048))
+    # every lane on one row, each on a column of its own
+    out["one row"] = (np.full(v, 5), rng.permutation(v),
+                      rng.choice([0, 1, 2, 255], v), np.ones(v))
+    # no lane fires
+    out["all masked"] = (rng.integers(-5, v + 5, b), rng.integers(-5, v + 5, b),
+                         rng.choice([0, 1, 7], b), rng.choice([0, -2], b))
+    # firing lanes past the last column of the dense row and of the packed
+    # one (lane 1: column v, past the dense row alone) beside in-range
+    # ones; the last three repeat lane 0's target
+    rows, cols = rng.integers(0, v, b), rng.integers(0, v, b)
+    rows[-3:], cols[-3:] = rows[0], cols[0]
+    far = rng.random(b) < 0.5
+    far[:1] = far[-3:] = False
+    cols[far] = 32 * w + rng.integers(0, 10**6, int(far.sum()))
+    rows[1], cols[1] = v - 1, v
+    out["columns out of range"] = (rows, cols, rng.choice([0, 1, 7], b),
+                                   rng.choice([0, 1], b, p=[0.1, 0.9]))
+    out["B = 0"] = tuple(np.zeros(0) for _ in range(4))
+    cap = one_block_lanes()
+    for n in (cap, cap + 1):
+        rows, cols = rng.integers(0, v, n), rng.integers(0, v, n)
+        hot = rng.random(n) < 0.3                # many duplicate targets
+        rows[hot], cols[hot] = rng.integers(0, 4, (2, int(hot.sum())))
+        out[f"B = {n}"] = (rows, cols, rng.choice([0, 1, 2, 255, -1], n),
+                           rng.choice([0, 1, -2], n))
+    return {k: tuple(np.asarray(x).astype(np.int32) for x in x4)
+            for k, x4 in out.items()}
+
+
+def phase_kernels(torch, rng, rng2, rng3, rng4):
     """Every kernel against its plain version on the card, bit for bit.
     The dense and edge-write cases draw from ``rng2``, so that ``rng``
     leaves this phase where the packed cases alone leave it (the later
-    phases' graphs do not depend on those cases), and the dense cases
-    over several query groups from ``rng3``, so that ``rng2`` leaves it
-    where it did before them."""
+    phases' graphs do not depend on those cases), the dense cases over
+    several query groups from ``rng3`` and the adversarial edge writes
+    from ``rng4``, so that ``rng2`` leaves it where it did before them."""
     from repro_torch.core.graph import pack_bits
     from repro_torch.kernels.bfs_multi_step.ops import (
         multi_bfs_step_packed_kernel)
@@ -796,7 +856,9 @@ def phase_kernels(torch, rng, rng2, rng3):
                      bfs_step_packed_ref(*sa), f"B3 v={v}")
                 dense_cases(torch, fr, bits, alive, vis, (r0, r1), v)
                 cases += 1
-            edge_cases += edge_update_cases(torch, rng2, adj, bits, v)
+            patterns = edge_patterns(rng4, v)
+            edge_cases += edge_update_cases(torch, rng2, adj, bits, v,
+                                            patterns)
     v = 2001                                # rows not 4-byte aligned
     bits = torch.from_numpy(rng2.random((v, v)) < 0.01).to(dev)
     bits[0, 31] = True
@@ -829,7 +891,7 @@ def phase_kernels(torch, rng, rng2, rng3):
         f"B3, B6, B6 slice, B7, B6 and its slice without parents; at "
         f"V = 2001 and Q in {DENSE_QS} the dense ones alone) and "
         f"{edge_cases} edge-write cases x (B5, B9) bit-identical "
-        f"(tolerance 0)")
+        f"(tolerance 0; patterns: {', '.join(patterns)})")
 
 
 def dense_cases(torch, fr, bits, alive, vis, rows, v):
@@ -855,24 +917,33 @@ def dense_cases(torch, fr, bits, alive, vis, rows, v):
     same(bfs_step(*sa), bfs_step_ref(*sa), f"B7 v={v}")
 
 
-def edge_update_cases(torch, rng, adj, bits, v):
+def edge_update_cases(torch, rng, adj, bits, v, patterns):
     """B5 on the packed words and B9 on the dense matrix against their
-    plain versions, at B = 1 and 1,024 lanes; returns the case count."""
+    plain versions, at B = 1 and 1,024 random lanes and on ``patterns``
+    (``edge_patterns``); returns the case count."""
+    dense = bits.to(torch.uint8)
+    ecnt = torch.from_numpy(rng.integers(0, 5, v).astype(np.int32)).to(
+        DEVICE)
+    cases = {f"b={b}": edge_lanes(rng, v, b, DEVICE) for b in (1, 1024)}
+    cases.update({k: [torch.from_numpy(x).to(DEVICE) for x in lanes]
+                  for k, lanes in patterns.items()})
+    for what, lanes in cases.items():
+        edge_check(adj, dense, ecnt, lanes, f"v={v} {what}")
+    return len(cases)
+
+
+def edge_check(words, dense, ecnt, lanes, what):
+    """B5 on ``words`` and B9 on ``dense`` through their public wrappers
+    against their plain versions, bit for bit."""
     from repro_torch.kernels.edge_update.ops import (edge_update,
                                                      edge_update_packed)
     from repro_torch.kernels.edge_update.ref import (edge_update_packed_ref,
                                                      edge_update_ref)
 
-    dense = bits.to(torch.uint8)
-    ecnt = torch.from_numpy(rng.integers(0, 5, v).astype(np.int32)).to(
-        DEVICE)
-    for b in (1, 1024):
-        lanes = edge_lanes(rng, v, b, DEVICE)
-        same(edge_update_packed(adj, ecnt, *lanes),
-             edge_update_packed_ref(adj, ecnt, *lanes), f"B5 v={v} b={b}")
-        same(edge_update(dense, ecnt, *lanes),
-             edge_update_ref(dense, ecnt, *lanes), f"B9 v={v} b={b}")
-    return 2
+    same(edge_update_packed(words, ecnt, *lanes),
+         edge_update_packed_ref(words, ecnt, *lanes), f"B5 {what}")
+    same(edge_update(dense, ecnt, *lanes),
+         edge_update_ref(dense, ecnt, *lanes), f"B9 {what}")
 
 
 def phase_index_kernels(torch, rng):
@@ -4294,13 +4365,13 @@ KERNEL_META = {  # name, package, wrapper that launches, plain version,
 ADJ_ARG_KERNELS = BFS_KERNELS + DENSE_KERNELS   # argument 1: the adjacency
 
 
-def edge_batch_lanes(torch, st, rng):
-    """rows, cols, vals, mask int32[LANES] of one equal-mix batch on
+def edge_batch_lanes(torch, st, rng, lanes: int = LANES):
+    """rows, cols, vals, mask int32[lanes] of one equal-mix batch on
     ``st``: its AddE (vals 1) and RemE (vals 0) lanes fire where both keys
     are alive; every other lane is masked (and may carry slot -1)."""
     from repro_torch.core import OP_ADD_E, OP_REM_E, find_slots
 
-    b = equal_mix_batch(rng, 1 << SCALE, DEVICE)
+    b = equal_mix_batch(rng, 1 << SCALE, DEVICE, lanes)
     r, c = find_slots(st, b.key1), find_slots(st, b.key2)
     edge = (b.opcode == OP_ADD_E) | (b.opcode == OP_REM_E)
     mask = (edge & (r >= 0) & (c >= 0)).to(torch.int32)
@@ -4325,6 +4396,7 @@ def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
     from repro_torch.core import bfs, find_slots, multi_bfs
     from repro_torch.core.graph import unpack_bits
     from repro_torch.index import build_index, query_reach
+    from repro_torch.kernels.edge_update.ops import one_block_lanes
 
     mods, plain = {}, {}
     for key, (_, pkg, _, ref_fn, _, _) in KERNEL_META.items():
@@ -4378,8 +4450,17 @@ def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
                             .to(torch.int32) for a in gathered_rows(c))
                       for c in captured["B4"]]
     lanes = edge_batch_lanes(torch, st, rng)
+    view = captured["B6"][0][1]
     captured["B5"] = [(st.adj_packed, st.ecnt) + lanes]
-    captured["B9"] = [(captured["B6"][0][1], st.ecnt) + lanes]
+    captured["B9"] = [(view, st.ecnt) + lanes]
+    # the edge writes past the one-block cap at full size
+    for n in (one_block_lanes() + 1, 65536):
+        edge_check(st.adj_packed, view, st.ecnt,
+                   edge_lanes(rng, view.shape[0], n, DEVICE),
+                   f"at full size, b={n}")
+    lanes = edge_batch_lanes(torch, st, rng, WIDE_EDGE_LANES)
+    edge_wide = {"B5": (st.adj_packed, st.ecnt) + lanes,
+                 "B9": (view, st.ecnt) + lanes}
     sync(torch)
     qr_kernels = query_reach_kernels(torch, index, isrc, idst)
     floor = launch_floor(torch)
@@ -4458,7 +4539,36 @@ def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
         if key in wide:
             out[-1].update(wide_times(torch, key, wide[key], kern,
                                       plain[key], timer))
+        if key in edge_wide:
+            # the public wrapper copies adj and ecnt first, as JAX returns
+            # new arrays: its wall beside the in-place kernel's
+            out[-1]["wrapper_ms"] = timer.ms(lambda: check(*calls[0]), 5)
+            log(f"  {name} ({key}) through its public wrapper (a copy of "
+                f"{calls[0][0].numel() * calls[0][0].element_size() / 1e6:.0f}"
+                f" MB first): {out[-1]['wrapper_ms']:.4f} ms/call (CUDA "
+                f"events)")
+            out[-1].update(edge_wide_times(torch, key, edge_wide[key], check,
+                                           kern, plain[key], timer))
     return out
+
+
+def edge_wide_times(torch, key, args, check, kern, plain, timer):
+    """B5/B9 on the lanes of one ``WIDE_EDGE_LANES`` equal-mix batch (the
+    global-scratch path): ``wide_*`` keys of the kernels line."""
+    ms, dms, subs, pms, bms, _, err, _ = time_calls(torch, key, [args], check,
+                                                    kern, plain, timer)
+    res = {"wide_lanes": int(args[2].numel()),
+           "wide_firing": int((args[5] > 0).sum()), "wide_max_abs_err": err,
+           "wide_ms": ms[0], "wide_device_ms": dms[0],
+           "wide_device_sub_ms": sub_means(subs), "wide_plain_ms": pms[0],
+           "wide_bound_ms": bms[0]}
+    log(f"{KERNEL_META[key][0]} ({key}) at B = {res['wide_lanes']} "
+        f"({res['wide_firing']} firing): max_abs_err {err}, kernel "
+        f"{ms[0]:.4f} ms/launch (CUDA events), device "
+        + (f"{dms[0]:.4f}" if dms[0] is not None else "not measured")
+        + f" ms [{sub_line(subs)}], plain {pms[0]:.3f} ms, bound "
+        f"{bms[0]:.6f} ms")
+    return res
 
 
 def time_calls(torch, key, calls, check, kern, plain, timer):
@@ -4774,7 +4884,8 @@ def main(argv=None) -> int:
     dense_rng = np.random.default_rng([args.seed, 2])
     t_all = time.perf_counter()
     card = phase_device(torch)
-    phase_kernels(torch, rng, dense_rng, np.random.default_rng([args.seed, 4]))
+    phase_kernels(torch, rng, dense_rng, np.random.default_rng([args.seed, 4]),
+                  np.random.default_rng([args.seed, 13]))
     phase_index_kernels(torch, index_rng)
     phase_wide_kernels(torch, np.random.default_rng([args.seed, 3]))
     phase_single_push(torch, np.random.default_rng([args.seed, 5]))

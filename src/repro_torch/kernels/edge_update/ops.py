@@ -9,8 +9,17 @@ version (``ref.py``), on anything else it raises. ``dense_launches`` (B9)
 and ``packed_launches`` (B5) count kernel launches. As in the JAX package
 no path calls them: they write ``adj_packed`` and ``ecnt`` but not the
 ``adj_in_packed`` mirror.
+
+Both launch through the ``*_scratch_launch`` entry points: up to
+``one_block_lanes()`` lanes one block with its hash table in shared
+memory, above three kernels on the stream with the table in a scratch of
+``scratch_bytes(b)`` bytes that the wrapper allocates. Both give the
+lane-order result.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -22,8 +31,24 @@ dense_launches = 0
 packed_launches = 0
 
 
-def _launch(fn, adj, ecnt, rows, cols, vals, mask, adj_dtype):
-    """Launch kernel ``fn`` in place on ``adj`` and ``ecnt``."""
+def one_block_lanes() -> int:
+    """The most lanes one block takes (kernel.cu's ONE_BLOCK_LANES); builds
+    the library, so it needs CUDA."""
+    return _build.load("edge_update").edge_update_one_block_lanes()
+
+
+@functools.lru_cache(maxsize=None)
+def scratch_bytes(b: int) -> int:
+    """Bytes of scratch the kernels need for ``b`` lanes (0 where they fit
+    one block)."""
+    fn = _build.load("edge_update").edge_update_scratch_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    return fn(b)
+
+
+def _launch(entry, adj, ecnt, rows, cols, vals, mask, adj_dtype):
+    """Launch kernel ``entry`` in place on ``adj`` and ``ecnt`` through its
+    C entry point ``<entry>_scratch_launch``."""
     dev = adj.device
     b = rows.shape[0]
     n_rows, n_cols = adj.shape
@@ -32,8 +57,11 @@ def _launch(fn, adj, ecnt, rows, cols, vals, mask, adj_dtype):
     for t, name in ((rows, "rows"), (cols, "cols"), (vals, "vals"),
                     (mask, "mask")):
         _build.check_tensor(t, name, torch.int32, (b,), dev)
-    _build.launch("edge_update", fn, dev, adj, ecnt, rows, cols, vals, mask,
-                  b, n_rows, n_cols)
+    nbytes = scratch_bytes(b)
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes
+               else None)
+    _build.launch("edge_update", f"{entry}_scratch_launch", dev, adj, ecnt,
+                  rows, cols, vals, mask, scratch, b, n_rows, n_cols)
     return adj, ecnt
 
 
@@ -41,7 +69,7 @@ def _launch_dense(adj, ecnt, rows, cols, vals, mask):
     """B9 in place: adj uint8[R, C], ecnt int32[R]; rows, cols, vals, mask
     int32[B]. Returns (adj, ecnt)."""
     global dense_launches
-    _launch("edge_update_launch", adj, ecnt, rows, cols, vals, mask,
+    _launch("edge_update", adj, ecnt, rows, cols, vals, mask,
             torch.uint8)
     dense_launches += 1
     return adj, ecnt
@@ -51,7 +79,7 @@ def _launch_packed(adj_packed, ecnt, rows, cols, vals, mask):
     """B5 in place: adj_packed int32[R, W], ecnt int32[R]; rows, cols,
     vals, mask int32[B]. Returns (adj_packed, ecnt)."""
     global packed_launches
-    _launch("edge_update_packed_launch", adj_packed, ecnt, rows, cols, vals,
+    _launch("edge_update_packed", adj_packed, ecnt, rows, cols, vals,
             mask, torch.int32)
     packed_launches += 1
     return adj_packed, ecnt

@@ -17,15 +17,21 @@ mode and against the JAX ref.py oracles, bit for bit (tolerance 0):
   B9 edge_update     dense: adj, ecnt (vals cast to uint8); both with
                      duplicate targets (the last firing lane wins), masked
                      lanes with out-of-range rows and columns, and V not a
-                     multiple of 8 or 32
+                     multiple of 8 or 32; and on adversarial lanes: every
+                     firing lane on one target, the 32 bits of one word set
+                     then cleared, one row with distinct columns, every
+                     lane masked, firing lanes past the last column (against
+                     the JAX refs alone: the interpret-mode kernels do not
+                     take them)
   B4 label_join       packed: hits, hub (label words with bit 31 set, all-zero
                       OUT rows)
   B8 label_join       dense: hits, hub on the 0/1 slabs, equal to B4 on the
                       packed rows
 
 V is not a multiple of 32 and edges land in column 31 (the int32 sign
-bit). The CUDA kernels themselves need the card: the ``cuda``-marked test
-runs them against the same plain versions and skips without one
+bit). The CUDA kernels themselves need the card: the ``cuda``-marked tests
+run them against the same plain versions and skip without one (B5/B9 also
+at B = 0 and at and past the one-block cap, the global-scratch path)
 (``python3 chip_smoke.py`` holds them on the card at full size)."""
 import jax.numpy as jnp
 import numpy as np
@@ -58,7 +64,8 @@ from repro_torch.kernels.bfs_pull_step.ref import bfs_pull_step_ref
 from repro_torch.kernels.bfs_step.ops import bfs_step, bfs_step_packed_kernel
 from repro_torch.kernels.bfs_step.ref import bfs_step_packed_ref, bfs_step_ref
 from repro_torch.kernels.edge_update.ops import (edge_update,
-                                                 edge_update_packed)
+                                                 edge_update_packed,
+                                                 one_block_lanes)
 from repro_torch.kernels.edge_update.ref import (edge_update_packed_ref,
                                                  edge_update_ref)
 from repro.kernels.label_join.kernel import (label_join_packed_pallas,
@@ -582,6 +589,151 @@ def test_edge_update_last_lane_wins_on_the_sign_bit():
                                                     dtype=torch.int32),
                            lanes[3])
     assert int(dense[1, 31]) == 300 % 256 and e.tolist() == [0, 3, 1, 0]
+
+
+EDGE_PATTERNS = ["one_target", "word_bits", "one_row", "all_masked",
+                 "cols_out_of_range"]
+
+
+def _pattern(name, v, seed):
+    """(adj uint8[v, v], ecnt, rows, cols, vals, mask) of adversarial
+    edge-write lanes, values in [0, 255]:
+    ``one_target``  every firing lane on one cell in column 31 (the sign
+                    bit), alternating set and clear, masked lanes between
+                    and last;
+    ``word_bits``   32 lanes set the 32 bits of one word (bit 31 included),
+                    then 32 later lanes clear them in another order;
+    ``one_row``     every lane on one row, each on a column of its own;
+    ``all_masked``  no lane fires (rows and columns partly out of range);
+    ``cols_out_of_range``  firing lanes whose column is 32W or more (past the
+                    packed row too; one on the last row at exactly 32W)
+                    beside in-range ones with a duplicate target."""
+    rng = np.random.default_rng(seed)
+    w = -(-v // 32)
+    adj = (rng.random((v, v)) < 0.3).astype(np.uint8)
+    ecnt = rng.integers(0, 5, v).astype(np.int32)
+    if name == "one_target":
+        b = 48
+        rows, cols = np.full(b, v // 3), np.full(b, 31)
+        mask = np.ones(b)
+        mask[2::3] = mask[-1] = 0
+        rows[mask == 0], cols[mask == 0] = 10**6, -10**6
+        vals = np.zeros(b)
+        vals[mask > 0] = np.resize([7, 0], int(mask.sum()))
+    elif name == "word_bits":
+        base = 32 * (v // 32 - 1)            # a word wholly inside [0, v)
+        rows = np.full(64, v - 2)
+        cols = base + np.concatenate([rng.permutation(32),
+                                      rng.permutation(32)])
+        vals = np.repeat([255, 0], 32)
+        mask = np.ones(64)
+    elif name == "one_row":
+        rows, cols = np.full(v, 5), rng.permutation(v)
+        vals = rng.choice(IN_RANGE_VALS, v)
+        mask = np.ones(v)
+    elif name == "all_masked":
+        rows, cols = rng.integers(0, v, 40), rng.integers(0, v, 40)
+        vals = rng.choice(IN_RANGE_VALS, 40)
+        mask = rng.choice([0, -2], 40)
+        rows[::3], cols[1::3] = 10**6, -10**6
+    else:
+        rows, cols = rng.integers(0, v, 40), rng.integers(0, v, 40)
+        rows[-3:], cols[-3:] = rows[0], cols[0]
+        far = rng.random(40) < 0.5
+        far[:1] = far[-3:] = False
+        # past 32W, and past V * V + 32W, where the JAX refs' flat index
+        # r * V + c meets no in-range target
+        cols[far] = np.where(rng.random(int(far.sum())) < 0.5, 32 * w,
+                             v * v + 32 * w) + rng.integers(0, 3, int(far.sum()))
+        rows[1], cols[1], far[1] = v - 1, 32 * w, True
+        vals = rng.choice(IN_RANGE_VALS, 40)
+        mask = np.ones(40)
+    return (adj, ecnt) + tuple(np.asarray(x).astype(np.int32)
+                               for x in (rows, cols, vals, mask))
+
+
+@pytest.mark.parametrize("v", [45, 64])
+@pytest.mark.parametrize("pattern", EDGE_PATTERNS)
+def test_edge_update_patterns_plain_match_jax(pattern, v):
+    """B9 and B5's plain versions (and their CPU wrappers) on adversarial
+    lanes against JAX's refs and, for in-range columns, its interpret-mode
+    kernels; the inputs are not written."""
+    adj, ecnt, *lanes = _pattern(pattern, v, seed=v)
+    words = _packed_words(adj)
+    for ref, wrapper, jax_ref, jax_kernel, a in (
+            (edge_update_ref, edge_update, j_b9_ref, j_b9, adj),
+            (edge_update_packed_ref, edge_update_packed, j_b5_ref, j_b5,
+             words)):
+        case = [a, ecnt] + lanes
+        t = [_t(x) for x in case]
+        got = ref(*t)
+        host = _u32(got[0]) if a.dtype == np.uint32 else got[0].numpy()
+        jax_fns = [jax_ref] + ([jax_kernel]
+                               if pattern != "cols_out_of_range" else [])
+        for fn in jax_fns:
+            want = fn(*[jnp.asarray(x) for x in case])
+            np.testing.assert_array_equal(host, np.asarray(want[0]))
+            np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+        for x, y in zip(wrapper(*t), got):
+            assert torch.equal(x, y)
+        for x, y in zip(t, case):                          # not written
+            assert torch.equal(x, _t(y))
+        fired = lanes[3] > 0
+        assert int((got[1] - t[1]).sum()) == int(
+            ((lanes[0][fired] >= 0) & (lanes[0][fired] < v)).sum())
+        if pattern == "all_masked":
+            assert torch.equal(got[0], t[0])
+        if pattern == "word_bits":
+            r, wi = v - 2, v // 32 - 1
+            assert (host[r, wi] if a.dtype == np.uint32
+                    else host[r, 32 * wi:32 * wi + 32].max()) == 0
+
+
+def _wide_lanes(v, b, seed):
+    """Random edge-write lanes, a third of them on 16 hot cells (many
+    duplicates), masked lanes partly parked out of range."""
+    rng = np.random.default_rng(seed)
+    rows, cols = rng.integers(0, v, b), rng.integers(0, v, b)
+    hot = rng.random(b) < 0.3
+    rows[hot], cols[hot] = rng.integers(0, 4, (2, int(hot.sum())))
+    vals = rng.choice(ANY_VALS, b)
+    mask = rng.choice([0, 1, 3, -2], b)
+    off = mask <= 0
+    rows[off & (rng.random(b) < 0.5)] = 10**6
+    cols[off & (rng.random(b) < 0.5)] = -10**6
+    return [x.astype(np.int32) for x in (rows, cols, vals, mask)]
+
+
+# B as (multiple of the one-block cap, lanes added)
+EDGE_WIDTHS = {"B = 0": (0, 0), "cap": (1, 0), "cap + 1": (1, 1),
+               "4 cap": (4, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EDGE_PATTERNS + list(EDGE_WIDTHS))
+def test_cuda_edge_update_patterns_match_plain(cuda_device, case):
+    """B9 and B5 on the adversarial lanes, and at B = 0, at the one-block
+    cap and past it (the global-scratch path), against their plain
+    versions."""
+    if case in EDGE_WIDTHS:
+        k, extra = EDGE_WIDTHS[case]
+        n = k * one_block_lanes() + extra
+        v = 300
+        rng = np.random.default_rng(n)
+        adj = (rng.random((v, v)) < 0.1).astype(np.uint8)
+        ecnt = rng.integers(0, 5, v).astype(np.int32)
+        lanes = _wide_lanes(v, n, seed=n)
+    else:
+        adj, ecnt, *lanes = _pattern(case, 64, seed=1)
+    d = cuda_device
+    t = [torch.from_numpy(x).to(d) for x in [ecnt] + lanes]
+    dense = torch.from_numpy(adj).to(d)
+    for a, b in zip(edge_update(dense, *t), edge_update_ref(dense, *t)):
+        assert torch.equal(a, b)
+    packed = _t(_packed_words(adj)).to(d)
+    for a, b in zip(edge_update_packed(packed, *t),
+                    edge_update_packed_ref(packed, *t)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

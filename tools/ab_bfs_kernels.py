@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's BFS kernels B1, B2, B3, B6 and B7 against a parent
-commit's, on one NVIDIA GPU, in the same process.
+"""Time the port's BFS kernels B1, B2, B3, B6 and B7 and its edge writes
+B5 and B9 against a parent commit's, on one NVIDIA GPU, in the same
+process.
 
     git archive <parent> | tar -x -C build/parent
     python3 tools/ab_bfs_kernels.py --parent build/parent [--seed 0]
@@ -33,6 +34,21 @@ each under torch.profiler for the device time of every sub-kernel
 the bytes or operations these inputs need at the card's peak rates).
 Prints one line per group and writes everything to
 ``build/ab_bfs_kernels.json``.
+
+B5 and B9, which no path launches, run in place on the state's words and
+its dense view (``GraphState.adj``) with the lanes of one equal-mix batch
+of 1,024 (group ``b1024``: ``chip_smoke.py`` phase 6's input), 2,048
+(``b2048``: the one-block cap) and 16,384 (``b16384``: the global-scratch
+path, phase 6's ``wide_*`` keys), through the parent's
+``edge_update_launch`` / ``edge_update_packed_launch``, each checked
+against the plain version first; the launch floor
+(``chip_smoke.launch_floor``) is logged beside. Events ms of these
+launch-bound kernels include whatever part of the host's enqueue the
+timer's L2 flush does not cover, so each group also logs the host's
+per-call enqueue wall of both forms, of the change's C call alone
+(``c_call``) and of the flush (``host_ms``, no synchronize between calls)
+and one torch.profiler trace of the change's wrapper with CPU activities
+(``trace_cpu_ms``: the ops and CUDA runtime calls in the trace).
 """
 from __future__ import annotations
 
@@ -63,9 +79,13 @@ KERNELS = {
     "B3": ("bfs_step", "bfs_step_packed_kernel", "bfs_step_packed_launch"),
     "B6": ("bfs_multi_step", "multi_bfs_step", "multi_bfs_step_launch"),
     "B7": ("bfs_step", "bfs_step", "bfs_step_launch"),
+    "B5": ("edge_update", "_launch_packed", "edge_update_packed_launch"),
+    "B9": ("edge_update", "_launch_dense", "edge_update_launch"),
 }
 HYBRID = ("B1", "B2", "B3")
 DENSE = ("B6", "B7")
+EDGE = ("B5", "B9")
+EDGE_GROUPS = {"b1024": 1024, "b2048": 2048, "b16384": 16384}
 
 
 def build_parent(parent: Path, keys) -> dict:
@@ -161,7 +181,133 @@ def parent_fn(key, lib):
         _call(lib, fn, f, adj, alive, vis, new, par, qm, ints, v)
         return new, par
 
-    return {"B1": b1, "B2": b2, "B3": b3, "B6": b6, "B7": b7}[key]
+    def edge(adj, ecnt, rows, cols, vals, mask):    # in place
+        _call(lib, fn, adj, ecnt, rows, cols, vals, mask, rows.shape[0],
+              *adj.shape)
+        return adj, ecnt
+
+    return {"B1": b1, "B2": b2, "B3": b3, "B6": b6, "B7": b7, "B5": edge,
+            "B9": edge}[key]
+
+
+def host_cost(torch, timer, forms, a, reps):
+    """What the host spends on one call of each of ``forms``: the per-call
+    enqueue wall over ``reps`` calls with no synchronize between them, the
+    same of the timer's flush, and one torch.profiler trace (CPU and CUDA
+    activities) of ``forms["change"]``: the traced call's wall, and
+    {op: cpu ms a call} of the CPU ops and CUDA runtime calls in the trace,
+    largest first."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def enqueue_ms(f):
+        f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            f()
+        t = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+        return t
+
+    host = {f: enqueue_ms(lambda: fn(*a)) for f, fn in forms.items()}
+    flush = enqueue_ms(timer.flush_buf.zero_)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            forms["change"](*a)
+        torch.cuda.synchronize()
+        with record_function("call"):
+            t0 = time.perf_counter()
+            forms["change"](*a)
+            wall = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    ops = {}
+    for e in sorted(prof.key_averages(), key=lambda e: -e.cpu_time_total):
+        if e.cpu_time_total > 0 and e.key not in ops and len(ops) < 12:
+            ops[e.key] = e.cpu_time_total / 1e3 / e.count
+    return {"host_ms": host, "flush_host_ms": flush,
+            "flush_ms": timer.flush_ms, "traced_call_ms": wall,
+            "trace_cpu_ms": ops}
+
+
+def edge_groups(st, rng, keys, libs, timer, reps, floor):
+    """B5/B9 on the state's words / dense view in every ``EDGE_GROUPS``
+    group: both forms against the plain version, then timed in place in
+    turns parent, change, change, parent, and the host's cost of each
+    (``host_cost``); one summary dict a group."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.edge_update import ops, ref
+
+    view = st.adj if "B9" in keys else None
+    batches = {g: cs.edge_batch_lanes(torch, st, rng, n)
+               for g, n in EDGE_GROUPS.items()}
+    results = []
+    for key in keys:
+        adj = st.adj_packed if key == "B5" else view
+        plain = (ref.edge_update_packed_ref if key == "B5"
+                 else ref.edge_update_ref)
+        for group, lanes in batches.items():
+            args = (adj, st.ecnt) + lanes
+            forms = {"parent": parent_fn(key, libs[key]),
+                     "change": getattr(ops, KERNELS[key][1])}
+            want = plain(*args)
+            for name, fn in forms.items():
+                cs.same(fn(adj.clone(), st.ecnt.clone(), *lanes), want,
+                        f"{key} {group} {name}")
+            nbytes, nops, peak = cs._work(torch, key, args, want)
+            del want
+            a = (adj.clone(), st.ecnt.clone()) + lanes
+            order = ["parent", "change", "change", "parent"]
+            ms = {f: [] for f in forms}
+            for f in order:
+                ms[f].append(timer.ms(lambda: forms[f](*a), reps))
+            dev = {f: timer.device_ms(lambda: forms[f](*a), reps)
+                   for f in forms}
+            # the change's C call alone, without its wrapper's checks
+            n = lanes[0].shape[0]
+            nb = ops.scratch_bytes(n)
+            scratch = (torch.empty(nb, dtype=torch.uint8, device="cuda")
+                       if nb else None)
+            entry = "edge_update_packed" if key == "B5" else "edge_update"
+
+            def bare(adj, ecnt, *lanes_):
+                _build.launch("edge_update", f"{entry}_scratch_launch",
+                              adj.device, adj, ecnt, *lanes_, scratch, n,
+                              *adj.shape)
+            host = host_cost(torch, timer, {**forms, "c_call": bare}, a,
+                             reps)
+            del a
+            summary = {
+                "kernel": key, "group": group, "lanes": lanes[0].shape[0],
+                "firing": int((lanes[3] > 0).sum()), "turns": order,
+                "ms": ms, "device_ms": {f: d for f, (d, _) in dev.items()},
+                "sub_ms": {f: sub for f, (_, sub) in dev.items()},
+                "bound_ms": max(nbytes / cs.HBM_BYTES_PER_S,
+                                nops / peak) * 1e3, **floor, **host}
+            results.append(summary)
+
+            def fmt(x):
+                return "not measured" if x is None else f"{x:.4f}"
+            cs.log(f"{key} {group} ({summary['lanes']} lanes, "
+                   f"{summary['firing']} firing): every form agrees; events "
+                   f"ms " + ", ".join(f"{f} {' / '.join(map(fmt, v))}"
+                                      for f, v in ms.items())
+                   + "; device ms " + ", ".join(
+                       f"{f} {fmt(d)}" for f, d in
+                       summary["device_ms"].items())
+                   + f"; bound {summary['bound_ms']:.6f} ms; floor "
+                   f"{floor['floor_ms']:.4f} ms (events), "
+                   f"{fmt(floor['floor_device_ms'])} ms (device)")
+            cs.log(f"{key} {group} host: enqueue ms a call " + ", ".join(
+                f"{f} {v:.4f}" for f, v in host["host_ms"].items())
+                + f", flush {host['flush_host_ms']:.4f} (its events ms "
+                f"{host['flush_ms']:.4f}); one traced change call "
+                f"{host['traced_call_ms']:.4f} ms wall, cpu ms a call: "
+                + ", ".join(f"{k} {v:.4f}"
+                            for k, v in host["trace_cpu_ms"].items()))
+    return results
 
 
 def capture(st, pairs, hubs, keys):
@@ -266,9 +412,14 @@ def main(argv=None) -> int:
     pairs = list(zip(rng.choice(deg_src, cs.QUERIES).tolist(),
                      rng.integers(0, 1 << cs.SCALE, cs.QUERIES).tolist()))
     hubs = cs.hub_slots(st, cs.INDEX_LANDMARKS)
-    captured, change = capture(st, pairs, hubs, keys)
+    captured, change = capture(st, pairs, hubs,
+                               [k for k in keys if k not in EDGE])
     timer = cs.Timer(torch)
     results = []
+    edge_keys = [k for k in keys if k in EDGE]
+    if edge_keys:
+        results += edge_groups(st, rng, edge_keys, libs, timer, args.reps,
+                               cs.launch_floor(torch))
     for (key, group), calls in sorted(captured.items()):
         par = parent_fn(key, libs[key])
         for a, kw in calls:
