@@ -23,6 +23,12 @@ Phases (each prints lines; the last line is the JSON result):
      join) and B8 (dense label join) against theirs and against each other
      over Q in {1, 5, 64, 1000}, L in {31, 32, 1024, 1030}, densities
      0 / 0.01 / 0.3, a common landmark in column 31 and all-zero OUT rows;
+     B8 (against its plain version, and B4 on the same labels packed) at
+     Q in {0, 1, 64, 65, 4096} x L in {1, 3, 4, 31, 1024, 1025, 1030} on
+     ``LABEL_PATTERNS`` slabs (random 0/1, a common landmark only at
+     L - 1, all-zero OUT rows, all-one rows, negative entries) at each of
+     ``LABEL_OFFSETS`` (views that start at an element offset, sharing
+     their 16-byte alignment or not);
      B4 by slot (what ``query_reach`` launches) against its plain version
      and against B4 on the rows it gathers, with slots of -1 and past the
      end and dead endpoints; then multi_bfs / bfs on "hybrid_cuda" against
@@ -76,7 +82,10 @@ Phases (each prints lines; the last line is the JSON result):
      inputs captured from one more Q = 64 traversal (B1-B3), one on the
      dense engine (B6, and B7 from one single-query traversal) and one
      Q = 64 probe of the phase-7 index (B4); B8 on the same probe's labels
-     unpacked to 0/1 rows; B5 on ``adj_packed`` and B9 on the dense view
+     unpacked to 0/1 rows, and wide (``wide_*`` keys) on the labels of
+     16,384 pairs of the index's live slots gathered and unpacked
+     (``B8_WIDE_Q``), and on a 0/1 slab of that shape at density 0.3
+     (``wide_dense_*`` keys); B5 on ``adj_packed`` and B9 on the dense view
      with the 1,024 lanes of one equal-mix batch's AddE/RemE slots (timed
      in place; the public wrappers copy the matrix first), and with the
      lanes of 16,384 (``wide_*`` keys: the global-scratch path); B5 and B9
@@ -1002,6 +1011,24 @@ def phase_index_kernels(torch, rng):
                      f"B4 q={q} l={l}")
                 same(packed, dense, f"B4 != B8 q={q} l={l}")
                 cases += 1
+    b8_cases = 0
+    gen = torch.Generator(device=DEVICE).manual_seed(int(rng.integers(2**31)))
+    for q in (0, 1, 64, 65, 4096):
+        for l in (1, 3, 4, 31, 1024, 1025, 1030):
+            for pattern in LABEL_PATTERNS:
+                a, b = label_pattern(torch, gen, pattern, q, l)
+                for oa, ob in LABEL_OFFSETS:
+                    ta, tb = at_offset(torch, a, oa), at_offset(torch, b, ob)
+                    what = f"B8 {pattern} q={q} l={l} offsets {oa}/{ob}"
+                    dense = label_join(ta, tb)
+                    same(dense, label_join_ref(ta, tb), what)
+                    same(label_join_packed(pack_bits(ta > 0),
+                                           pack_bits(tb > 0)), dense,
+                         f"B4 != {what}")
+                    if pattern == "all_one" and not bool(
+                            (dense[0] == l).all()):
+                        raise AssertionError(f"{what}: hits != L")
+                    b8_cases += 1
     # B4 by slot: slots of -1 and past the end, dead endpoints, the sign bit
     slot_cases = 0
     for l in (31, 1024, 1030):
@@ -1022,8 +1049,56 @@ def phase_index_kernels(torch, rng):
             slot_cases += 1
     sync(torch)
     log(f"index kernels vs plain: B1 and B2 at Q={bq} V={v}; {cases} cases "
-        f"x (B4, B8, B4 == B8); {slot_cases} cases x (B4 by slot, B4 by "
+        f"x (B4, B8, B4 == B8); {b8_cases} B8 edge cases x (B8, B4 on the "
+        f"labels packed); {slot_cases} cases x (B4 by slot, B4 by "
         f"slot == B4 on the gathered rows); bit-identical (tolerance 0)")
+
+
+LABEL_PATTERNS = ("random", "last", "empty_out", "all_one", "signed")
+# (OUT, IN) element offsets of the slabs' views: aligned, both one word
+# off (B8's head and tail entries), and off by different words (B8's
+# 4-byte-load instance)
+LABEL_OFFSETS = ((0, 0), (1, 1), (1, 2))
+SIGNED_ENTRIES = (-5, -1, 0, 1, 2, -2**31, 2**31 - 1)
+
+
+def label_pattern(torch, gen, pattern, q: int, l: int):
+    """int32 OUT/IN slabs [q, l] on the card, drawn from ``gen``: "random"
+    (0/1 at density 0.05, a common landmark in column 31, an all-zero last
+    OUT row), "last" (the only common landmark at l - 1), "empty_out"
+    (all-zero OUT rows), "all_one" (hits = l) or "signed" (entries of
+    ``SIGNED_ENTRIES``: only those > 0 are labels)."""
+    def draw(dens):
+        return (torch.rand((q, l), generator=gen, device=DEVICE) < dens).to(
+            torch.int32)
+    if pattern == "signed":
+        vals = torch.tensor(SIGNED_ENTRIES, dtype=torch.int32, device=DEVICE)
+        return tuple(vals[torch.randint(len(SIGNED_ENTRIES), (q, l),
+                                        generator=gen, device=DEVICE)]
+                     for _ in range(2))
+    a, b = draw(0.05), draw(0.05)
+    if pattern == "random":
+        if q > 0 and l > 31:
+            a[0, 31] = b[0, 31] = 1
+        if q > 1:
+            a[-1] = 0
+    elif pattern == "last":
+        b.zero_()
+        a[:, -1] = b[:, -1] = 1
+    elif pattern == "empty_out":
+        a.zero_()
+    else:
+        a.fill_(1)
+        b.fill_(1)
+    return a, b
+
+
+def at_offset(torch, x, off: int):
+    """A contiguous copy of ``x`` that starts ``off`` elements into its
+    buffer (a row start is then not 16-byte aligned when off % 4 != 0)."""
+    buf = torch.zeros(off + x.numel(), dtype=x.dtype, device=x.device)
+    buf[off:] = x.reshape(-1)
+    return buf[off:].view(x.shape)
 
 
 def skewed_words(rng, v: int):
@@ -4385,7 +4460,8 @@ def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
     last dense-engine session's ``dpairs`` on "dense_cuda" (B6), one
     single-query traversal on each (B3 and B2, B7), and one Q=64 probe of
     ``index`` on ``ist`` (B4); B8, which no path launches,
-    on that probe's label words unpacked; B5 and B9, which no path
+    on that probe's label words unpacked and on ``b8_wide_slabs``; B5 and
+    B9, which no path
     launches either, on ``st``'s words and dense view with one equal-mix
     batch's edge lanes (timed in place on copies). B2's single-query
     launches are timed apart (``q1_*`` keys; ``q1_path`` of them ran on
@@ -4394,7 +4470,6 @@ def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
     import importlib
 
     from repro_torch.core import bfs, find_slots, multi_bfs
-    from repro_torch.core.graph import unpack_bits
     from repro_torch.index import build_index, query_reach
     from repro_torch.kernels.edge_update.ops import one_block_lanes
 
@@ -4445,9 +4520,8 @@ def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
     finally:
         for k in traced:
             setattr(mods[k], KERNEL_META[k][2], originals[k])
-    # B8 on the rows the probe joined
-    captured["B8"] = [tuple(unpack_bits(a, index.num_landmarks)
-                            .to(torch.int32) for a in gathered_rows(c))
+    # B8 on the rows the probe joined, and wide
+    captured["B8"] = [b8_rows(torch, index, c[3], c[4])
                       for c in captured["B4"]]
     lanes = edge_batch_lanes(torch, st, rng)
     view = captured["B6"][0][1]
@@ -4461,6 +4535,7 @@ def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
     lanes = edge_batch_lanes(torch, st, rng, WIDE_EDGE_LANES)
     edge_wide = {"B5": (st.adj_packed, st.ecnt) + lanes,
                  "B9": (view, st.ecnt) + lanes}
+    b8_wide = b8_wide_slabs(torch, index, rng)
     sync(torch)
     qr_kernels = query_reach_kernels(torch, index, isrc, idst)
     floor = launch_floor(torch)
@@ -4549,7 +4624,64 @@ def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
                 f"events)")
             out[-1].update(edge_wide_times(torch, key, edge_wide[key], check,
                                            kern, plain[key], timer))
+        if key == "B8":
+            for prefix, args in b8_wide.items():
+                out[-1].update(b8_wide_times(torch, prefix, args, kern,
+                                             plain[key], timer))
     return out
+
+
+B8_WIDE_Q = 16384     # B8's wide shape: pairs of the index's live slots
+
+
+def b8_rows(torch, index, src, dst):
+    """(out_rows, in_rows) int32[Q, L]: the 0/1 labels B4 by slot joins for
+    slots ``src`` / ``dst`` of ``index``, gathered and unpacked."""
+    from repro_torch.core.graph import unpack_bits
+
+    args = (index.out_label, index.in_label, index.alive, src, dst)
+    return tuple(unpack_bits(a, index.num_landmarks).to(torch.int32)
+                 for a in gathered_rows(args))
+
+
+def live_pairs(torch, index, n: int, rng):
+    """(src, dst) int32[n] slots drawn from ``rng`` among ``index``'s live
+    slots."""
+    live = index.alive.nonzero().flatten().cpu().numpy()
+    return tuple(torch.from_numpy(rng.choice(live, n).astype(np.int32))
+                 .to(index.alive.device) for _ in range(2))
+
+
+def b8_wide_slabs(torch, index, rng):
+    """B8's wide inputs: ``"wide"``, the labels of ``B8_WIDE_Q`` pairs of
+    the index's live slots (pruned: nearly every OUT entry is 0), and
+    ``"wide_dense"``, a 0/1 slab of the same shape at density 0.3."""
+    gen = torch.Generator(device=DEVICE).manual_seed(int(rng.integers(2**31)))
+    shape = (B8_WIDE_Q, index.num_landmarks)
+    dense = tuple((torch.rand(shape, generator=gen, device=DEVICE) < 0.3)
+                  .to(torch.int32) for _ in range(2))
+    return {"wide": b8_rows(torch, index,
+                            *live_pairs(torch, index, B8_WIDE_Q, rng)),
+            "wide_dense": dense}
+
+
+def b8_wide_times(torch, prefix, args, kern, plain, timer):
+    """B8 on one wide slab pair: ``<prefix>_*`` keys of the kernels line."""
+    ms, dms, subs, pms, bms, _, err, _ = time_calls(torch, "B8", [args], kern,
+                                                    kern, plain, timer)
+    q, l = args[0].shape
+    res = {f"{prefix}_q": q, f"{prefix}_l": l,
+           f"{prefix}_out_labels": int((args[0] > 0).sum()),
+           f"{prefix}_max_abs_err": err, f"{prefix}_ms": ms[0],
+           f"{prefix}_device_ms": dms[0], f"{prefix}_plain_ms": pms[0],
+           f"{prefix}_bound_ms": bms[0]}
+    log(f"label_join (B8) {prefix} at Q = {q}, L = {l} "
+        f"({res[prefix + '_out_labels']} OUT entries > 0): max_abs_err "
+        f"{err}, kernel {ms[0]:.4f} ms/launch (CUDA events), device "
+        + (f"{dms[0]:.4f}" if dms[0] is not None else "not measured")
+        + f" ms [{sub_line(subs)}], plain {pms[0]:.3f} ms, bound "
+        f"{bms[0]:.6f} ms")
+    return res
 
 
 def edge_wide_times(torch, key, args, check, kern, plain, timer):
@@ -4799,7 +4931,8 @@ def _work(torch, key, args, want):
     """(bytes, operations, peak operations/s) one call needs on these
     inputs: each input byte read once, each output written once; for the
     adjacency only the rows or words the data requires, for the IN labels
-    only the words whose OUT word is nonzero, and for the edge writes only
+    only the words whose OUT word is nonzero (B8: whose OUT entry is > 0,
+    its label test), and for the edge writes only
     the touched cells or words and ecnt rows."""
     if key == "B4":    # by slot: the slots, their alive bytes, the OUT
         # rows of the pairs with both endpoints ok, the IN words under a
@@ -4815,7 +4948,7 @@ def _work(torch, key, args, want):
         return nbytes, 2 * need_in, ALU_OPS_PER_S
     if key == "B8":
         out_rows, _ = args
-        need_in = int((out_rows != 0).sum())
+        need_in = int((out_rows > 0).sum())
         outs = sum(t.numel() * t.element_size() for t in want)
         nbytes = out_rows.numel() * 4 + need_in * 4 + outs
         return nbytes, need_in, ALU_OPS_PER_S

@@ -80,8 +80,8 @@ def label_join_slots(out_label, in_label, alive, src, dst):
 
 
 def label_join(out_rows, in_rows):
-    """B8: out_rows/in_rows int32[Q, L] 0/1 labels -> (hits int32[Q],
-    hub int32[Q])."""
+    """B8: out_rows/in_rows int32[Q, L] label slabs (a landmark counts where
+    both entries are > 0) -> (hits int32[Q], hub int32[Q])."""
     global dense_launches
     if out_rows.is_cuda:
         res = _launch("label_join_launch", out_rows, in_rows)

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the label joins (the kernels' contracts).
 
   label_join_ref(out_rows, in_rows)          B8, dense
-      out_rows/in_rows int32[Q, L] (0/1 label slabs)
+      out_rows/in_rows int32[Q, L] (label slabs: an entry > 0 is a label)
   label_join_packed_ref(out_words, in_words)  B4, packed
       out_words/in_words int32[Q, W] (label bitsets stored as int32 words)
   label_join_slots_ref(out_label, in_label, alive, src, dst)  B4 by slot
@@ -9,8 +9,10 @@
 
 Each returns (hits int32[Q], hub int32[Q]): hits = number of common
 landmarks (2-hop witnesses), hub = smallest common landmark index, -1 when
-there is none. A word whose only set bit is bit 31 is negative in int32
-storage, so every test is ``!= 0``. The slot form also returns the
+there is none. B8 counts a landmark where both entries are ``> 0``, as
+JAX's kernel and oracle do (zero and negative entries are not labels). A
+packed word whose only set bit is bit 31 is negative in int32 storage, so
+the packed forms test ``!= 0``. The slot form also returns the
 endpoint flags (src_ok, dst_ok bool[Q]: ``endpoint_ok``) and joins the
 rows ``slot_rows`` gathers.
 """
@@ -31,7 +33,7 @@ def label_join_ref(out_rows, in_rows):
     q, l = out_rows.shape
     if l == 0:
         return _empty(q, out_rows.device)
-    common = (out_rows != 0) & (in_rows != 0)
+    common = (out_rows > 0) & (in_rows > 0)
     hits = common.sum(1, dtype=torch.int32)
     ids = torch.arange(l, dtype=torch.int32, device=out_rows.device)
     hub = torch.where(common, ids[None, :], INT32_MAX).amin(1)

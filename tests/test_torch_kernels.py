@@ -26,12 +26,15 @@ mode and against the JAX ref.py oracles, bit for bit (tolerance 0):
   B4 label_join       packed: hits, hub (label words with bit 31 set, all-zero
                       OUT rows)
   B8 label_join       dense: hits, hub on the 0/1 slabs, equal to B4 on the
-                      packed rows
+                      packed rows; on slabs with negative entries (-1, -5,
+                      INT32_MIN), where only entries > 0 are labels
 
 V is not a multiple of 32 and edges land in column 31 (the int32 sign
 bit). The CUDA kernels themselves need the card: the ``cuda``-marked tests
 run them against the same plain versions and skip without one (B5/B9 also
-at B = 0 and at and past the one-block cap, the global-scratch path)
+at B = 0 and at and past the one-block cap, the global-scratch path; B8
+also at Q = 0 to 4,096, L = 1 to 1,030, on views that start at an element
+offset)
 (``python3 chip_smoke.py`` holds them on the card at full size)."""
 import jax.numpy as jnp
 import numpy as np
@@ -422,19 +425,116 @@ def test_label_join_plain_handles_the_sign_bit_and_empty_shapes():
         assert hits.tolist() == [0, 0, 0] and hub.tolist() == [-1, -1, -1]
 
 
+INT32_MIN, INT32_MAX = -2**31, 2**31 - 1
+SIGNED_ENTRIES = np.array([-5, -1, 0, 1, 2, INT32_MIN, INT32_MAX], np.int32)
+
+
+def _signed_labels(q, l, seed):
+    """int32 OUT/IN slabs [Q, L] whose entries are -5, -1, 0, 1, 2,
+    INT32_MIN or INT32_MAX: a landmark counts only where both are > 0."""
+    rng = np.random.default_rng(seed)
+    return (rng.choice(SIGNED_ENTRIES, (q, l)),
+            rng.choice(SIGNED_ENTRIES, (q, l)))
+
+
+def _motivating_labels():
+    """Row 0: out[3] = -1 with in[3] = 1, out[7] = in[7] = 1; row 1: out[5]
+    = 2 with in[5] = INT32_MIN; row 2: out[9] = 1 with in[9] = -5."""
+    a = np.zeros((8, 128), np.int32)
+    b = np.zeros((8, 128), np.int32)
+    a[0, 3], b[0, 3], a[0, 7], b[0, 7] = -1, 1, 1, 1
+    a[1, 5], b[1, 5] = 2, INT32_MIN
+    a[2, 9], b[2, 9] = 1, -5
+    return a, b
+
+
+# (q, l, seed): None is the motivating case; q = 5, l = 37 takes no Pallas
+# tile, so it is held against JAX's oracle alone
+SIGNED_LABEL_CASES = [(8, 128, None), (8, 256, 1), (16, 128, 2), (5, 37, 3)]
+
+
+@pytest.mark.parametrize("q,l,seed", SIGNED_LABEL_CASES)
+def test_label_join_plain_takes_jax_label_test(q, l, seed):
+    """B8 counts a landmark where both entries are > 0, as JAX's oracle and
+    its interpret-mode Pallas kernel do: negative entries, INT32_MIN among
+    them, are not labels."""
+    a, b = _motivating_labels() if seed is None else _signed_labels(q, l,
+                                                                    seed)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    plain = label_join_ref(ta, tb)
+    wants = [j_b8(jnp.asarray(a), jnp.asarray(b))]
+    if q % 8 == 0 and l % 128 == 0:
+        wants.append(label_join_pallas(jnp.asarray(a), jnp.asarray(b), tq=q,
+                                       tl=128))
+    for want in wants:
+        for got in (plain, label_join(ta, tb)):
+            np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+            np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    if seed is None:
+        assert plain[0][:3].tolist() == [1, 0, 0]
+        assert plain[1][:3].tolist() == [7, -1, -1]
+
+
+def _label_pattern(pattern, q, l, density, seed):
+    """OUT/IN slabs of one edge case of the B8 kernel: "random" (0/1 with a
+    common landmark in column 31 and an all-zero OUT row), "last" (the only
+    common landmark at L - 1), "empty_out" (all-zero OUT rows), "all_one"
+    (hits = L) or "signed" (negative entries)."""
+    if pattern == "signed":
+        return _signed_labels(q, l, seed)
+    rng = np.random.default_rng(seed)
+    a = (rng.random((q, l)) < density).astype(np.int32)
+    b = (rng.random((q, l)) < density).astype(np.int32)
+    if pattern == "random":
+        if q > 0 and l > 31:
+            a[0, 31] = b[0, 31] = 1
+        if q > 1:
+            a[-1] = 0
+    elif pattern == "last":
+        b[:] = 0
+        a[:, -1] = b[:, -1] = 1
+    elif pattern == "empty_out":
+        a[:] = 0
+    else:
+        a[:], b[:] = 1, 1
+    return a, b
+
+
+def _at_offset(x, off, device):
+    """A contiguous view of ``x`` that starts ``off`` elements into its
+    buffer, so that a row start is not 16-byte aligned when off % 4 != 0."""
+    buf = torch.zeros(off + x.size, dtype=torch.int32, device=device)
+    buf[off:] = torch.from_numpy(x.reshape(-1)).to(device)
+    return buf[off:].view(x.shape)
+
+
+LABEL_PATTERNS = ("random", "last", "empty_out", "all_one", "signed")
+# (OUT, IN) element offsets: aligned, both off by one word (the kernel's
+# head and tail), and off by different words (the 4-byte-load instance)
+LABEL_OFFSETS = ((0, 0), (1, 1), (1, 2))
+CUDA_LABEL_CASES = LABEL_CASES + [(1000, 1030, 0.3)] + [
+    (q, l, 0.05) for q in (0, 1, 64, 65, 4096)
+    for l in (1, 3, 4, 31, 1024, 1025, 1030)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("q,l,density", LABEL_CASES + [(1000, 1030, 0.3)])
+@pytest.mark.parametrize("q,l,density", CUDA_LABEL_CASES)
 def test_cuda_label_join_kernels_match_plain_versions(cuda_device, q, l,
                                                       density):
-    a, b = _labels(q, l, density, seed=q + l)
-    ta = torch.from_numpy(a).to(cuda_device)
-    tb = torch.from_numpy(b).to(cuda_device)
-    pa, pb = pack_bits(ta != 0), pack_bits(tb != 0)
-    dense = label_join(ta, tb)
-    packed = label_join_packed(pa, pb)
-    for got in (dense, packed):
-        for x, y in zip(got, label_join_ref(ta, tb)):
-            assert torch.equal(x, y)
+    """B8 on every ``LABEL_PATTERNS`` slab at every ``LABEL_OFFSETS`` pair,
+    and B4 on the same labels packed, against B8's plain version."""
+    for pattern in LABEL_PATTERNS:
+        a, b = _label_pattern(pattern, q, l, density, seed=q + l)
+        for oa, ob in LABEL_OFFSETS:
+            ta = _at_offset(a, oa, cuda_device)
+            tb = _at_offset(b, ob, cuda_device)
+            want = label_join_ref(ta, tb)
+            pa, pb = pack_bits(ta > 0), pack_bits(tb > 0)
+            for got in (label_join(ta, tb), label_join_packed(pa, pb)):
+                for x, y in zip(got, want):
+                    assert torch.equal(x, y), (pattern, oa, ob)
+            if pattern == "all_one":
+                assert (want[0] == l).all()
 
 
 # ----------------------------------------------------------------------------

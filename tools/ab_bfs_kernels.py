@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's BFS kernels B1, B2, B3, B6 and B7 and its edge writes
-B5 and B9 against a parent commit's, on one NVIDIA GPU, in the same
-process.
+"""Time the port's BFS kernels B1, B2, B3, B6 and B7, its edge writes
+B5 and B9 and its dense label join B8 against a parent commit's, on one
+NVIDIA GPU, in the same process.
 
     git archive <parent> | tar -x -C build/parent
     python3 tools/ab_bfs_kernels.py --parent build/parent [--seed 0]
@@ -49,6 +49,18 @@ per-call enqueue wall of both forms, of the change's C call alone
 (``c_call``) and of the flush (``host_ms``, no synchronize between calls)
 and one torch.profiler trace of the change's wrapper with CPU activities
 (``trace_cpu_ms``: the ops and CUDA runtime calls in the trace).
+
+B8, which no path launches, runs through the parent's
+``label_join_launch`` (whose signature the redesign kept) beside this
+checkout's wrapper on the 0/1 labels of an index built over the 1,024
+highest-degree slots, gathered for query pairs and unpacked
+(``chip_smoke.b8_rows``): group ``q64``, the 64 pairs of a probe drawn as
+phase 7 draws them, and groups ``q1024`` and ``q16384``, pairs of the
+index's live slots (``chip_smoke.live_pairs``; 16,384 is phase 6's wide
+shape). Each group is checked against the plain version first, then timed
+in turns parent, change, change, parent (events ms), once each for device
+ms, with its bound and its host cost (``host_cost``), and in turns once
+more behind a flush that leaves L2 clean (``clean_l2_ms``).
 """
 from __future__ import annotations
 
@@ -81,11 +93,13 @@ KERNELS = {
     "B7": ("bfs_step", "bfs_step", "bfs_step_launch"),
     "B5": ("edge_update", "_launch_packed", "edge_update_packed_launch"),
     "B9": ("edge_update", "_launch_dense", "edge_update_launch"),
+    "B8": ("label_join", "label_join", "label_join_launch"),
 }
 HYBRID = ("B1", "B2", "B3")
 DENSE = ("B6", "B7")
 EDGE = ("B5", "B9")
 EDGE_GROUPS = {"b1024": 1024, "b2048": 2048, "b16384": 16384}
+JOIN_GROUPS = (64, 1024, 16384)   # B8's queries a launch
 
 
 def build_parent(parent: Path, keys) -> dict:
@@ -186,8 +200,15 @@ def parent_fn(key, lib):
               *adj.shape)
         return adj, ecnt
 
+    def b8(out_rows, in_rows):
+        q, l = out_rows.shape
+        hits = torch.empty((q,), dtype=torch.int32, **e)
+        hub = torch.empty((q,), dtype=torch.int32, **e)
+        _call(lib, fn, out_rows, in_rows, hits, hub, q, l)
+        return hits, hub
+
     return {"B1": b1, "B2": b2, "B3": b3, "B6": b6, "B7": b7, "B5": edge,
-            "B9": edge}[key]
+            "B9": edge, "B8": b8}[key]
 
 
 def host_cost(torch, timer, forms, a, reps):
@@ -310,6 +331,97 @@ def edge_groups(st, rng, keys, libs, timer, reps, floor):
     return results
 
 
+def clean_l2_ms(torch, fn, reps, buf):
+    """Events ms of one ``fn()`` behind a read of ``buf`` (a max over 128
+    MiB, which leaves L2 clean where the timer's zero-fill leaves it dirty,
+    so that the next kernel also writes those lines back), less the read
+    alone."""
+    def raw(f):
+        buf.max()
+        f()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            buf.max()
+            f()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+    return raw(fn) - raw(lambda: None)
+
+
+def join_groups(st, pairs, hubs, lib, timer, reps, floor, rng):
+    """B8 on the unpacked labels of an index over ``hubs``, for the probe's
+    ``pairs`` (group q64) and for pairs of live slots (``JOIN_GROUPS``):
+    both forms against the plain version, then timed in turns parent,
+    change, change, parent, with the host's cost of each; one summary dict
+    a group."""
+    import torch
+
+    from repro_torch.core import find_slots
+    from repro_torch.index import build_index
+    from repro_torch.kernels.label_join import ops, ref
+
+    index = build_index(st, landmark_slots=hubs)
+    groups = {}
+    for n in JOIN_GROUPS:
+        if n == cs.QUERIES:
+            src, dst = (find_slots(st, torch.tensor(
+                [p[i] for p in pairs], dtype=torch.int32, device=st.device))
+                for i in (0, 1))
+        else:
+            src, dst = cs.live_pairs(torch, index, n, rng)
+        groups[f"q{n}"] = cs.b8_rows(torch, index, src, dst)
+    results = []
+    forms = {"parent": parent_fn("B8", lib), "change": ops.label_join}
+    read_buf = torch.empty(128 << 20, dtype=torch.uint8, device=st.device)
+    for group, a in groups.items():
+        want = ref.label_join_ref(*a)
+        for name, fn in forms.items():
+            cs.same(fn(*a), want, f"B8 {group} {name}")
+        nbytes, nops, peak = cs._work(torch, "B8", a, want)
+        del want
+        order = ["parent", "change", "change", "parent"]
+        ms = {f: [] for f in forms}
+        for f in order:
+            ms[f].append(timer.ms(lambda: forms[f](*a), reps))
+        dev = {f: timer.device_ms(lambda: forms[f](*a), reps) for f in forms}
+        clean = {f: [] for f in forms}
+        for f in order:
+            clean[f].append(clean_l2_ms(torch, lambda: forms[f](*a), reps,
+                                        read_buf))
+        host = host_cost(torch, timer, forms, a, reps)
+        summary = {
+            "kernel": "B8", "group": group, "shape": list(a[0].shape),
+            "out_labels": int((a[0] > 0).sum()), "turns": order, "ms": ms,
+            "device_ms": {f: d for f, (d, _) in dev.items()},
+            "clean_l2_ms": clean,
+            "bound_ms": max(nbytes / cs.HBM_BYTES_PER_S,
+                            nops / peak) * 1e3, **floor, **host}
+        results.append(summary)
+
+        def fmt(x):
+            return "not measured" if x is None else f"{x:.4f}"
+        cs.log(f"B8 {group} ({summary['shape']}, {summary['out_labels']} OUT "
+               f"entries > 0): both forms agree; events ms "
+               + ", ".join(f"{f} {' / '.join(map(fmt, v))}"
+                           for f, v in ms.items())
+               + "; device ms " + ", ".join(
+                   f"{f} {fmt(d)}" for f, d in summary["device_ms"].items())
+               + "; events ms behind a clean-L2 flush " + ", ".join(
+                   f"{f} {' / '.join(map(fmt, v))}" for f, v in clean.items())
+               + f"; bound {summary['bound_ms']:.6f} ms; floor "
+               f"{floor['floor_ms']:.4f} ms (events), "
+               f"{fmt(floor['floor_device_ms'])} ms (device)")
+        cs.log(f"B8 {group} host: enqueue ms a call " + ", ".join(
+            f"{f} {v:.4f}" for f, v in host["host_ms"].items())
+            + f", flush {host['flush_host_ms']:.4f}; one traced change call "
+            f"{host['traced_call_ms']:.4f} ms wall")
+    return results
+
+
 def capture(st, pairs, hubs, keys):
     """{(kernel, group): [(args, kwargs)]} of this checkout's launches of
     the kernels ``keys``. A dense kernel's adjacency (argument 1) is the
@@ -413,13 +525,17 @@ def main(argv=None) -> int:
                      rng.integers(0, 1 << cs.SCALE, cs.QUERIES).tolist()))
     hubs = cs.hub_slots(st, cs.INDEX_LANDMARKS)
     captured, change = capture(st, pairs, hubs,
-                               [k for k in keys if k not in EDGE])
+                               [k for k in keys if k not in EDGE + ("B8",)])
     timer = cs.Timer(torch)
     results = []
     edge_keys = [k for k in keys if k in EDGE]
+    floor = (cs.launch_floor(torch) if edge_keys or "B8" in keys else None)
     if edge_keys:
         results += edge_groups(st, rng, edge_keys, libs, timer, args.reps,
-                               cs.launch_floor(torch))
+                               floor)
+    if "B8" in keys:
+        results += join_groups(st, pairs, hubs, libs["B8"], timer, args.reps,
+                               floor, rng)
     for (key, group), calls in sorted(captured.items()):
         par = parent_fn(key, libs[key])
         for a, kw in calls:
