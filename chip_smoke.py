@@ -5,6 +5,16 @@
 
 Phases (each prints lines; the last line is the JSON result):
   1. device: the card's name and power limit (nvidia-smi), the kernel build
+  1a. analysis, after the build: ``python -m repro_torch.analysis`` (the
+     port's linter and kernel sanitizer) as a child must exit 0 on this
+     machine, which has no jax; every module of ``repro_torch`` (but
+     ``__main__`` modules) must import (``modwalk.preflight_imports``);
+     and the build's ``ptxas -v`` report of each library must agree with
+     the packages' ``KERNEL_META['device_kernels']``
+     (``repro_torch.analysis.ptxas``: every kernel and template instance
+     declared, static shared memory equal, registers within a declared
+     ``max_registers``, every declared kernel built). One line a kernel:
+     smem, registers and spills beside the card's name and power limit
   2. kernels: B1 (multi push), B2 (pull), B3 (single push), B6 (dense
      multi push) and B7 (dense single push) against their plain PyTorch
      versions on the card, bit for bit (tolerance 0: every output is an
@@ -686,6 +696,53 @@ def phase_device(torch):
         log(f"  {name}: " + " | ".join(regs)
             + (f"; spills: {spills}" if spills else "; no spills"))
     return card
+
+
+def phase_analysis(card: str) -> None:
+    """1a: the port's linter as a child, the import preflight of every
+    module of the port, and the build's ptxas report against each
+    package's KERNEL_META. The child runs while this process checks the
+    rest. A failed check ends the run."""
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis", "--root", str(ROOT)],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        from repro_torch.analysis import modwalk, ptxas
+        from repro_torch.kernels import _build
+
+        rows, failures = ptxas.check_build(
+            {n: _build.library_path(n) for n in _build.PACKAGES})
+        t_ptxas = time.perf_counter() - t0
+        mods = [m for m, _ in modwalk.iter_package_modules(
+            ROOT / "src" / "repro_torch", "repro_torch")
+            if not m.endswith(".__main__")]
+        errors = modwalk.preflight_imports(mods)
+        t_imports = time.perf_counter() - t0 - t_ptxas
+        out, _ = child.communicate(timeout=300)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if child.returncode != 0:
+        raise AssertionError(f"python -m repro_torch.analysis exited "
+                             f"{child.returncode}:\n{out}")
+    log(f"analysis: {out.strip().splitlines()[-1]} (child, "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if errors:
+        raise AssertionError("modules of repro_torch do not import:\n"
+                             + "\n".join(errors))
+    log(f"analysis: all {len(mods)} modules of repro_torch import "
+        f"({t_imports:.1f} s)")
+    for row in rows:
+        log(f"  ptxas {ptxas.render(row)} [{card}]")
+    if failures:
+        raise AssertionError("the ptxas report disagrees with KERNEL_META:"
+                             "\n" + "\n".join(failures))
+    log(f"analysis: {len(rows)} kernels of {len(_build.PACKAGES)} libraries "
+        f"match their KERNEL_META ({t_ptxas:.1f} s); phase "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def _counters():
@@ -5017,6 +5074,7 @@ def main(argv=None) -> int:
     dense_rng = np.random.default_rng([args.seed, 2])
     t_all = time.perf_counter()
     card = phase_device(torch)
+    phase_analysis(card)
     phase_kernels(torch, rng, dense_rng, np.random.default_rng([args.seed, 4]),
                   np.random.default_rng([args.seed, 13]))
     phase_index_kernels(torch, index_rng)

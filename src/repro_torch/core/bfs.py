@@ -154,7 +154,9 @@ def pick_direction(pulling: bool, nf: int, nu: int, v: int, alpha: int,
     pick_direction), so the choices and direction tags match it."""
     f32 = np.float32
     if pulling:
+        # repro-torch-lint: allow(trace-purity) — numpy scalars of the superstep's popcounts, no device value
         return bool(f32(nf) * f32(beta) >= f32(v))
+    # repro-torch-lint: allow(trace-purity) — numpy scalars of the superstep's popcounts, no device value
     return bool(f32(nf) * f32(alpha) >= f32(nu))
 
 
@@ -314,6 +316,7 @@ def _run(state: GraphState, src, dst, backend: str, parents: bool,
             f = frontiers & act[:, None]
             nu_t = (unvisited_live & act[:, None]).sum()
             # the superstep's one sync: loop test and the switch's popcounts
+            # repro-torch-lint: allow(trace-purity) — the superstep's one sync (JAX's host loop reads the same)
             any_act, nf, nu = torch.stack(
                 [act.any().to(nu_t.dtype), f.sum(), nu_t]).tolist()
             if not any_act:
@@ -411,8 +414,9 @@ def extract_path(parent, src_slot: int, dst_slot: int):
     """Walk the BFS tree from dst back to src on the host. Returns
     (length, slots int32[V] numpy): ``slots[:length]`` is the path src..dst
     in order, padded with -1 (the paper's p-pointer trace in GetPath)."""
+    # repro-torch-lint: allow(trace-purity) — the path walk runs on the host: one copy of parent[V]
     par = (parent.cpu().numpy() if isinstance(parent, torch.Tensor)
-           else np.asarray(parent))
+           else np.asarray(parent))  # repro-torch-lint: allow(trace-purity) — already on the host
     v = par.shape[0]
     rev = []
     cur = int(dst_slot)

@@ -199,6 +199,7 @@ def _serial_masked(st: GraphState, ops: OpBatch, lanes, res: np.ndarray,
     is both the reference engine (all lanes) and the fast engine's
     correction pass (the conflicting lanes). ``serial_pass`` is the pass
     class (the sharded engine brings its own)."""
+    # repro-torch-lint: allow(trace-purity) — the serial pass runs on the host: one copy of the batch
     host = np.stack([t.cpu().numpy() for t in ops]).astype(np.int64)
     sp = serial_pass(st)
     for i in lanes:
@@ -384,14 +385,16 @@ def apply_ops_fast(state: GraphState, ops: OpBatch):
     conflict = _lane_conflicts(ops)
     clean = ~conflict & (ops.opcode != OP_NOP)
     wants, slot, overflow = _alloc_schedule(state, ops)
+    # repro-torch-lint: allow(trace-purity) — capacity overflow picks the engine: one scalar a batch
     if bool(overflow):
         # capacity exhaustion couples lanes across keys: full serial replay
         return apply_ops(state, ops)
     st = _copy(state)
     res = _apply_clean_vectorized(st, ops, clean, wants, slot)
+    # repro-torch-lint: allow(trace-purity) — the conflicting lanes and their results go to the serial pass
     lanes = torch.nonzero(conflict).flatten().tolist()
     if lanes:
-        res_np = _serial_masked(st, ops, lanes, res.cpu().numpy())
+        res_np = _serial_masked(st, ops, lanes, res.cpu().numpy())  # repro-torch-lint: allow(trace-purity) — the serial pass reads the results on the host
         res = torch.from_numpy(res_np).to(state.device)
     return st, res
 

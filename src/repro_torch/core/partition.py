@@ -317,6 +317,7 @@ def _each_owner(blocks, rows, per):
     owner = rows // per
     for s, blk in enumerate(blocks):
         sel = owner == s
+        # repro-torch-lint: allow(trace-purity) — a shard owning none of the rows is skipped: one scalar a shard
         if bool(sel.any()):
             yield blk, _on(rows[sel] - s * per, blk.device), sel
 
@@ -416,7 +417,7 @@ class _ShardedSerialPass(gops._SerialPass):
         # other shard contributes 0. A mutation reads the physical bit, as
         # the dense pass does, never the traversable edge:
         # repro-lint: allow(traversable-predicate) — a physical-bit read
-        return (int(self._word(self.st.adj_packed, row, col))
+        return (int(self._word(self.st.adj_packed, row, col))  # repro-torch-lint: allow(traversable-predicate) — a physical-bit read
                 & bit_mask(col)) != 0
 
     def in_sources(self, slot: int) -> np.ndarray:
@@ -461,6 +462,7 @@ def apply_ops_fast(state: ShardedGraphState, ops: OpBatch):
     conflict = gops._lane_conflicts(ops)
     clean = ~conflict & (ops.opcode != OP_NOP)
     wants, slot, overflow = gops._alloc_schedule(state, ops)
+    # repro-torch-lint: allow(trace-purity) — capacity overflow picks the engine: one scalar a batch
     if bool(overflow):
         # capacity exhaustion couples lanes across keys: every lane serial
         lanes = list(range(b))
@@ -468,9 +470,10 @@ def apply_ops_fast(state: ShardedGraphState, ops: OpBatch):
                          device=state.device)
     else:
         res = _apply_clean(st, ops, clean, wants, slot)
+        # repro-torch-lint: allow(trace-purity) — the conflicting lanes and their results go to the serial pass
         lanes = torch.nonzero(conflict).flatten().tolist()
     if lanes:
-        res_np = gops._serial_masked(st, ops, lanes, res.cpu().numpy(),
+        res_np = gops._serial_masked(st, ops, lanes, res.cpu().numpy(),  # repro-torch-lint: allow(trace-purity) — the serial pass reads the results on the host
                                      serial_pass=_ShardedSerialPass)
         res = torch.from_numpy(res_np).to(state.device)
     st._replicate()
@@ -597,6 +600,7 @@ def _run(state: ShardedGraphState, src, dst, backend: str, alpha: int,
         f = frontiers & act[:, None]
         # replicated popcounts: the same decision on every shard
         nu_t = ((alive[None, :] & ~visited) & act[:, None]).sum()
+        # repro-torch-lint: allow(trace-purity) — the superstep's one sync, replicated on every shard
         any_act, nf, nu = torch.stack(
             [act.any().to(nu_t.dtype), f.sum(), nu_t]).tolist()
         if not any_act:

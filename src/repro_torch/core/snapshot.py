@@ -135,15 +135,16 @@ def _path(parent_np, found: bool, src: int, dst: int, vkey_np):
 def _materialize(state: GraphState, c: Collect, rounds,
                  starved=False) -> PathResult:
     dev = state.device
+    # repro-torch-lint: allow(trace-purity) — GetPath materializes its path on the host
     found = bool(c.found)
-    n, keys = _path(c.parent.cpu().numpy(), found, int(c.src_slot),
-                    int(c.dst_slot), state.vkey.cpu().numpy())
+    n, keys = _path(c.parent.cpu().numpy(), found, int(c.src_slot),  # repro-torch-lint: allow(trace-purity) — parent[V] to the host once
+                    int(c.dst_slot), state.vkey.cpu().numpy())  # repro-torch-lint: allow(trace-purity) — the slot keys to the host once
     return PathResult(
         torch.tensor(found, device=dev),
         torch.tensor(n, dtype=torch.int32, device=dev),
         torch.from_numpy(keys).to(dev),
         torch.tensor(int(rounds), dtype=torch.int32, device=dev),
-        torch.tensor(bool(starved), device=dev))
+        torch.tensor(bool(starved), device=dev))  # repro-torch-lint: allow(trace-purity) — a host flag
 
 
 def get_path(state: GraphState, k, l,
@@ -168,11 +169,13 @@ def collect_batch(state, ks, ls, backend: str | None = None,
     cross-check reference)."""
     _require_state(state)
     dev = state.device
+    # repro-torch-lint: allow(trace-purity) — host key lists in, not device tensors
     ks = torch.as_tensor(np.asarray(ks, np.int32), device=dev)
-    ls = torch.as_tensor(np.asarray(ls, np.int32), device=dev)
+    ls = torch.as_tensor(np.asarray(ls, np.int32), device=dev)  # repro-torch-lint: allow(trace-purity) — host key lists in
     if engine == "vmap":
+        # the cross-check engine copies the keys to the host once
         cs = [collect(state, int(k), int(l), backend=backend)
-              for k, l in zip(ks.tolist(), ls.tolist())]
+              for k, l in zip(ks.tolist(), ls.tolist())]  # repro-torch-lint: allow(trace-purity) — the cross-check engine's one copy
         return Collect(*(torch.stack(f) for f in zip(*cs)))
     if engine != "fused":
         raise ValueError(f"unknown collect_batch engine {engine!r}")
@@ -329,6 +332,7 @@ def interleaved_getpath(state: GraphState, batches: OpBatch, k, l,
         if done_round >= 0:
             continue  # answered: the remaining rounds only mutate
         cur = collect(state, k, l, backend=backend)
+        # repro-torch-lint: allow(trace-purity) — the double collect decides when to stop: one scalar a round
         if bool(compare_collects(prev, cur)):
             ans, done_round = cur, t + 1
         prev = cur

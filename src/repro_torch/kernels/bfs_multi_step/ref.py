@@ -75,7 +75,7 @@ def multi_bfs_step_ref(frontiers, adj, alive, visited, parents: bool = True,
     for i in range(0, rows.numel(), chunk):
         rc = rows[i:i + chunk]
         # repro-lint: allow(traversable-predicate) — raw rows; `new` masks
-        m = frontiers[:, rc, None] & (adj[rc] != 0)[None]    # [Q, c, V]
+        m = frontiers[:, rc, None] & (adj[rc] != 0)[None]    # [Q, c, V]  # repro-torch-lint: allow(traversable-predicate) — raw rows; `new` masks
         hit = m.any(1)
         reach |= hit
         if not parents:
