@@ -56,11 +56,13 @@ from repro_torch.core.graph import (
     unpack_bits,
     wrap_int32,
 )
+from repro_torch.obs import trace as _trace
 
 
 def _copy(state: GraphState) -> GraphState:
     """The one copy a batch makes before mutating in place."""
-    return GraphState(*(t.clone() for t in state))
+    with _trace.span("ops.copy"):
+        return GraphState(*(t.clone() for t in state))
 
 
 # ----------------------------------------------------------------------------
@@ -212,9 +214,10 @@ def apply_ops(state: GraphState, ops: OpBatch):
     """Apply a batch with exact lane-order linearization (reference engine).
     Returns (new state, result codes int32[B])."""
     st = _copy(state)
-    res = _serial_masked(st, ops, range(ops.lanes),
-                         np.full((ops.lanes,), R_FALSE, np.int32))
-    return st, torch.from_numpy(res).to(state.device)
+    with _trace.span("ops.serial_pass", lanes=ops.lanes):
+        res = _serial_masked(st, ops, range(ops.lanes),
+                             np.full((ops.lanes,), R_FALSE, np.int32))
+        return st, torch.from_numpy(res).to(state.device)
 
 
 # ----------------------------------------------------------------------------
@@ -382,21 +385,29 @@ def apply_ops_fast(state: GraphState, ops: OpBatch):
     commute with every lane), then the conflicting lanes in lane order."""
     if ops.lanes == 0:
         return _copy(state), ops.opcode.clone()
-    conflict = _lane_conflicts(ops)
-    clean = ~conflict & (ops.opcode != OP_NOP)
-    wants, slot, overflow = _alloc_schedule(state, ops)
-    # repro-torch-lint: allow(trace-purity) — capacity overflow picks the engine: one scalar a batch
-    if bool(overflow):
-        # capacity exhaustion couples lanes across keys: full serial replay
-        return apply_ops(state, ops)
-    st = _copy(state)
-    res = _apply_clean_vectorized(st, ops, clean, wants, slot)
-    # repro-torch-lint: allow(trace-purity) — the conflicting lanes and their results go to the serial pass
-    lanes = torch.nonzero(conflict).flatten().tolist()
-    if lanes:
-        res_np = _serial_masked(st, ops, lanes, res.cpu().numpy())  # repro-torch-lint: allow(trace-purity) — the serial pass reads the results on the host
-        res = torch.from_numpy(res_np).to(state.device)
-    return st, res
+    with _trace.span("ops.apply", lanes=ops.lanes) as sp:
+        with _trace.span("ops.schedule"):
+            conflict = _lane_conflicts(ops)
+            clean = ~conflict & (ops.opcode != OP_NOP)
+            wants, slot, overflow = _alloc_schedule(state, ops)
+            # repro-torch-lint: allow(trace-purity) — capacity overflow picks the engine: one scalar a batch
+            replay = bool(overflow)
+        if replay:
+            # capacity exhaustion couples lanes across keys: full serial replay
+            sp.set(serial_lanes=ops.lanes, replay=True)
+            return apply_ops(state, ops)
+        st = _copy(state)
+        with _trace.span("ops.clean_pass"):
+            res = _apply_clean_vectorized(st, ops, clean, wants, slot)
+        with _trace.span("ops.serial_pass") as ser:
+            # repro-torch-lint: allow(trace-purity) — the conflicting lanes and their results go to the serial pass
+            lanes = torch.nonzero(conflict).flatten().tolist()
+            ser.set(lanes=len(lanes))
+            if lanes:
+                res_np = _serial_masked(st, ops, lanes, res.cpu().numpy())  # repro-torch-lint: allow(trace-purity) — the serial pass reads the results on the host
+                res = torch.from_numpy(res_np).to(state.device)
+        sp.set(serial_lanes=len(lanes), replay=False)
+        return st, res
 
 
 # ----------------------------------------------------------------------------

@@ -190,17 +190,18 @@ def collect_batch(state, ks, ls, backend: str | None = None,
 
 def _materialize_batch(state, cur: Collect, pairs):
     """(found, keys) per pair, from ONE host copy of the batch."""
-    parent = cur.parent.cpu().numpy()
-    found = cur.found.cpu().numpy()
-    src = cur.src_slot.cpu().numpy()
-    dst = cur.dst_slot.cpu().numpy()
-    vkey = state.vkey.cpu().numpy()
-    out = []
-    for qi in range(len(pairs)):
-        n, keys = _path(parent[qi], bool(found[qi]), int(src[qi]),
-                        int(dst[qi]), vkey)
-        out.append((bool(found[qi]), [int(x) for x in keys[:n]]))
-    return out
+    with _trace.span("session.materialize", pairs=len(pairs)):
+        dev = (cur.parent, cur.found, cur.src_slot, cur.dst_slot, state.vkey)
+        with _trace.span("session.to_host", bytes=sum(
+                t.numel() * t.element_size() for t in dev)):
+            parent, found, src, dst, vkey = (t.cpu().numpy() for t in dev)
+        with _trace.span("session.path_walk"):
+            out = []
+            for qi in range(len(pairs)):
+                n, keys = _path(parent[qi], bool(found[qi]), int(src[qi]),
+                                int(dst[qi]), vkey)
+                out.append((bool(found[qi]), [int(x) for x in keys[:n]]))
+            return out
 
 
 def _session_stats(stats, *, rounds, starved, resolved, epoch):
@@ -242,9 +243,11 @@ def get_paths_session(fetch_state, pairs, *, max_rounds: int | None = 16,
             with _trace.span("collect.round", round=rounds + 1):
                 cur = one(state)
             rounds += 1
-            # a capacity grow between collects is an effective mutation
-            if (prev.versions.shape == cur.versions.shape
-                    and bool(compare_collect_batches(prev, cur))):
+            with _trace.span("session.compare"):
+                # a capacity grow between collects is an effective mutation
+                same = (prev.versions.shape == cur.versions.shape
+                        and bool(compare_collect_batches(prev, cur)))
+            if same:
                 _session_stats(stats, rounds=rounds, starved=False,
                                resolved="match", epoch=None)
                 sp.set(rounds=rounds, resolved="match")

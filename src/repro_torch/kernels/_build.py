@@ -22,6 +22,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.obs import trace as _trace
+
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
 PACKAGES = ("bfs_multi_step", "bfs_pull_step", "bfs_step", "edge_update",
@@ -120,7 +122,8 @@ def launch(name: str, fn: str, device, *args) -> None:
     current stream. ``args`` are tensors (passed as device pointers) and
     Python ints (passed as C ints); the stream is appended. Raises on a
     CUDA error. The launch does not synchronize. ``None`` passes a null
-    pointer (an output the launcher is told not to write)."""
+    pointer (an output the launcher is told not to write). Traced as one
+    ``kernel.launch`` span around the C call: the host's enqueue."""
     lib = load(name)
     cfn = getattr(lib, fn)
     cfn.argtypes = [ctypes.c_int if isinstance(a, int) else ctypes.c_void_p
@@ -130,7 +133,9 @@ def launch(name: str, fn: str, device, *args) -> None:
         stream = torch.cuda.current_stream(device).cuda_stream
         vals = [a if isinstance(a, int) or a is None else a.data_ptr()
                 for a in args]
-        check(lib, cfn(*vals, stream), f"{name}.{fn}")
+        with _trace.span("kernel.launch", package=name, fn=fn):
+            code = cfn(*vals, stream)
+        check(lib, code, f"{name}.{fn}")
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,

@@ -15,6 +15,15 @@ read both.
 
 ``fence(x)`` makes a span measure device work: while tracing it calls
 ``torch.cuda.synchronize()`` when ``x`` holds CUDA tensors.
+
+The port also emits spans the JAX package has no twin for (``PORT_SPANS``,
+DESIGN.md §14 "Port-only spans"): the write path from
+``GraphCoServer.submit`` down to the serial pass, the host side of a
+GetPath session, and the enqueue of each CUDA kernel. None of them
+fences. Every event's ``ts`` counts microseconds from
+``TraceRecorder.epoch_ns``, a ``time.perf_counter_ns()`` reading that
+``export()`` also writes as ``otherData.perf_counter_epoch_ns``, so a
+span can be laid over a device trace kept on that clock.
 """
 from __future__ import annotations
 
@@ -27,6 +36,14 @@ import time
 import torch
 
 _TRUTHY = {"1", "true", "yes", "on"}
+
+# spans of the port that the JAX package does not emit; tests that compare
+# the two packages' events drop exactly these names
+PORT_SPANS = frozenset({
+    "serve.submit", "serve.make_batch", "serve.codes_to_host", "serve.grow",
+    "ops.apply", "ops.schedule", "ops.copy", "ops.clean_pass",
+    "ops.serial_pass", "session.materialize", "session.to_host",
+    "session.path_walk", "session.compare", "kernel.launch"})
 
 
 class _NullSpan:
@@ -81,11 +98,11 @@ class TraceRecorder:
         self.enabled = False
         self._events: list[dict] = []
         self._lock = threading.Lock()
-        self._epoch_ns = time.perf_counter_ns()
+        self.epoch_ns = time.perf_counter_ns()   # the origin of every ts
 
     def _event(self, name: str, ph: str, t0_ns: int) -> dict:
         return {"name": name, "ph": ph,
-                "ts": (t0_ns - self._epoch_ns) / 1e3,   # microseconds
+                "ts": (t0_ns - self.epoch_ns) / 1e3,   # microseconds
                 "pid": os.getpid(), "tid": threading.get_ident() & 0xFFFF}
 
     def _emit(self, name: str, t0_ns: int, dur_ns: int, attrs: dict) -> None:
@@ -124,7 +141,8 @@ class TraceRecorder:
             return list(self._events)
 
     def export(self) -> dict:
-        return {"traceEvents": self.events(), "displayTimeUnit": "ms"}
+        return {"traceEvents": self.events(), "displayTimeUnit": "ms",
+                "otherData": {"perf_counter_epoch_ns": self.epoch_ns}}
 
     def save(self, path: str) -> str:
         with open(path, "w", encoding="utf-8") as f:

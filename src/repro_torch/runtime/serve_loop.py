@@ -161,6 +161,7 @@ class GraphCoServer:
         self.auto_grow = auto_grow
         self.query_engine = query_engine
         self.grow_events = 0
+        self._submits = 0               # submit calls: a traced batch's seq
         self.index_enabled = bool(index)
         self.index_landmarks = index_landmarks
         self.index = None
@@ -236,30 +237,40 @@ class GraphCoServer:
         return grow(state, new_capacity)
 
     def submit(self, ops: list) -> np.ndarray:
-        if self.degraded:
-            # typed rejection: every lane answers R_RECOVERING
-            self.rejected_writes += 1
-            with _trace.span("serve.reject_write", lanes=len(ops)):
-                return np.full((len(ops),), R_RECOVERING, np.int32)
-        if self.pool is not None:
-            # one anonymous client on the pool, drained: one linearization
-            # log shared with every concurrent client
-            ticket = self.pool.submit("_direct", ops)
-            self.pool.flush()
-            return np.asarray(ticket.results)
-        base = self.state                    # pre-batch snapshot (functional)
-        batch = make_op_batch(ops, device=base.device)
-        state, res = self._apply(base, batch)
-        res = res.cpu().numpy()
-        while self.auto_grow and (res == R_TABLE_FULL).any():
-            # discard the starved application, grow the PRE-batch state and
-            # replay the whole batch: one clean lane-order linearization
-            base = self._grow(base, 2 * state.capacity)
-            self.grow_events += 1
+        """Apply one batch of (opcode, k1[, k2[, expect]]) tuples in lane
+        order; returns its result codes. Traced as one ``serve.submit``
+        span (``seq`` counts the server's calls)."""
+        self._submits += 1
+        with _trace.span("serve.submit", lanes=len(ops), seq=self._submits):
+            if self.degraded:
+                # typed rejection: every lane answers R_RECOVERING
+                self.rejected_writes += 1
+                with _trace.span("serve.reject_write", lanes=len(ops)):
+                    return np.full((len(ops),), R_RECOVERING, np.int32)
+            if self.pool is not None:
+                # one anonymous client on the pool, drained: one
+                # linearization log shared with every concurrent client
+                ticket = self.pool.submit("_direct", ops)
+                self.pool.flush()
+                return np.asarray(ticket.results)
+            base = self.state                # pre-batch snapshot (functional)
+            with _trace.span("serve.make_batch", lanes=len(ops)):
+                batch = make_op_batch(ops, device=base.device)
             state, res = self._apply(base, batch)
-            res = res.cpu().numpy()
-        self.state = state
-        return res
+            with _trace.span("serve.codes_to_host"):
+                res = res.cpu().numpy()
+            while self.auto_grow and (res == R_TABLE_FULL).any():
+                # discard the starved application, grow the PRE-batch state
+                # and replay the whole batch: one clean lane-order
+                # linearization
+                with _trace.span("serve.grow", capacity=2 * state.capacity):
+                    base = self._grow(base, 2 * state.capacity)
+                    self.grow_events += 1
+                    state, res = self._apply(base, batch)
+                    with _trace.span("serve.codes_to_host"):
+                        res = res.cpu().numpy()
+            self.state = state
+            return res
 
     # -- multi-tenant admission surface (DESIGN.md §12) ---------------------
     def submit_client(self, client_id: str, ops: list):

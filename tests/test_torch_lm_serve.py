@@ -100,7 +100,8 @@ def _run(mode, tmp_path=None):
         before = reg.snapshot()
         with tr.capture() as rec:
             out, stats = serve_fn(model, params, prompts, **kw, graph=srv)
-            spans = [e["name"] for e in rec.events() if e.get("ph") == "X"]
+            spans = [e["name"] for e in rec.events() if e.get("ph") == "X"
+                     and e["name"] not in ttrace.PORT_SPANS]
         runs.append(dict(out=out, stats=stats.snapshot(),
                          metrics=srv.get_metrics(), spans=spans,
                          tracing=_global_delta(reg.snapshot(), before, reg),

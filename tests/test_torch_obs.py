@@ -21,6 +21,7 @@ from repro.runtime.ingest import IngestStats as JIngestStats
 from repro.runtime.serve_loop import ServeStats as JServeStats
 from repro_torch.runtime.ingest import IngestPool as TPool
 from repro_torch.runtime.ingest import IngestStats as TIngestStats
+from repro_torch.obs.trace import PORT_SPANS
 from repro_torch.runtime.serve_loop import ServeStats as TServeStats
 from torch_jax_isolation import clear_traced_only_jits
 
@@ -182,7 +183,8 @@ def _traced_pump(M, Pool, tr, **dev):
             pool.pump()
             rounds.append([(e["name"], e["ph"],
                             {k: v for k, v in e.get("args", {}).items()})
-                           for e in rec.events()])
+                           for e in rec.events()
+                           if e["name"] not in PORT_SPANS])
             rec.clear()
     return rounds
 
@@ -213,6 +215,7 @@ def test_only_the_multi_source_bfs_is_traced_as_in_jax():
             M.get_path_session(lambda: st, 0, 31)
             single = len(rec.events())
             M.get_paths_session(lambda: st, [(0, 31), (31, 4)])
-        got.append((single, [e["name"] for e in rec.events()]))
+        got.append((single, [e["name"] for e in rec.events()
+                             if e["name"] not in PORT_SPANS]))
     assert got[0] == got[1]
     assert got[1][0] == 0 and "bfs.superstep" in got[1][1]
