@@ -67,7 +67,9 @@ Phases (each prints lines; the last line is the JSON result):
      (B = 1024, the paper's "equal" mix), one ``get_paths_session`` (Q = 64;
      in rounds 1 and 5 a mutator commits a batch on the first two fetches,
      so the double collect must retry) and one ``get_path_session``
-  4. checks: the first batch equals ``apply_ops``; the transpose invariant
+  4. checks: each of the 8 batches equals ``apply_ops`` on the state it is
+     applied to (codes and the six arrays; the serial pass kernel runs on
+     every batch's conflicting lanes); the transpose invariant
      holds at the end; every matched answer equals scipy's BFS on the live
      edges of the state it was validated on, and every path is a chain of
      live edges; each kernel was launched on the main path
@@ -117,6 +119,16 @@ Phases (each prints lines; the last line is the JSON result):
      (``query_reach_kernels``, torch.profiler). Every row carries the
      launch floor: a one-element ``torch.zeros(1)`` fill's device ms and
      its back-to-back CUDA-events ms (``floor_device_ms``, ``floor_ms``)
+  6b. the serial pass kernel (SP) at the benchmark's size: a Graph500
+     SCALE 18 state at capacity 266,240 (``SP_*``; a block's slice of the
+     slot table outgrows its 1,024 threads, so a thread owns two slots,
+     and the free slots are such second slots), one update-mix batch
+     (``UPDATE_MIX``) through ``apply_ops_fast`` equal to ``apply_ops``
+     (one launch); then the launch alone on that batch's conflicting
+     lanes, each of ``SP_REPS`` on a fresh copy of the state after the
+     clean pass (CUDA events; the copy flushes L2), its device time from a
+     profiler trace, the host pass on the same input, and the bytes bound
+     of the lanes the launch applied; the kernels line's ``SP`` entry
   7. the reachability index at full size on the phase-3 state:
      ``build_index`` on the 1,024 highest-degree alive slots, computed here
      and passed as ``landmark_slots`` (``pick_landmarks`` follows the JAX
@@ -519,6 +531,14 @@ DENSE_KERNELS = ("B6", "B7")
 EDGE_KERNELS = ("B5", "B9")
 WIDE_EDGE_LANES = 16384      # B5/B9's global-scratch path, timed in phase 6
 MIX = (12.5, 12.5, 25, 12.5, 12.5, 25)   # AddV RemV HasV AddE RemE HasE
+# phase 6b: the serial pass at the benchmark's g500-s18 size, under the
+# paper's update-intensive mix
+SP_SCALE = 18
+SP_CAPACITY = 266_240        # 2**18 keys + 4,096 free slots
+SP_CHURN = 4_096             # AddV / RemV keys: the top 2,048 loaded, 2,048 new
+SP_REPS = 6
+SP_THREADS = 1024             # kernel.cu's THREADS: the slots a block reads at once
+UPDATE_MIX = (22.5, 22.5, 5, 22.5, 22.5, 5)
 DEVICE = "cuda"
 TRACE_DIR = ROOT / "build" / "chip_smoke_traces"
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
@@ -1509,6 +1529,7 @@ def phase_main(torch, rng, rounds: int):
     from repro_torch.core import (apply_ops, apply_ops_fast,
                                   get_path_session, get_paths_session,
                                   transpose_invariant)
+    from repro_torch.kernels.serial_pass import ops as sp_ops
     from repro_torch.obs import trace
 
     n = 1 << SCALE
@@ -1531,18 +1552,8 @@ def phase_main(torch, rng, rounds: int):
     singles = [(int(rng.choice(deg_src)), int(rng.integers(0, n)))
                for _ in range(rounds)]
 
-    # first batch: the fast engine against the serial specification
-    fast_st, fast_res = apply_ops_fast(st, batches[0])
-    ser_st, ser_res = apply_ops(st, batches[0])
-    for f, x, y in zip(("codes",) + st._fields, (fast_res,) + fast_st,
-                       (ser_res,) + ser_st):
-        if not torch.equal(x, y):
-            raise AssertionError(f"apply_ops_fast != apply_ops: {f}")
-    del fast_st, ser_st
-    log(f"apply_ops_fast == apply_ops on batch 0 (codes + 6 arrays, "
-        f"B={LANES})")
-
     cur = {"st": st}
+    serial_launches = sp_ops.launches
     apply_s, session_s, single_s = [], [], []
     rounds_seen, single_rounds = [], []
     supersteps, pulls = [], []
@@ -1551,11 +1562,21 @@ def phase_main(torch, rng, rounds: int):
     reset_counts()
     with trace.capture() as rec:
         for r in range(rounds):
+            # the fast engine (its conflicting lanes in one launch of the
+            # serial pass kernel) against the serial specification
+            ser_st, ser_res = apply_ops(cur["st"], batches[r])
             sync(torch)
             t0 = time.perf_counter()
-            cur["st"], _ = apply_ops_fast(cur["st"], batches[r])
+            fast_st, fast_res = apply_ops_fast(cur["st"], batches[r])
             sync(torch)
             apply_s.append(time.perf_counter() - t0)
+            for f, x, y in zip(("codes",) + st._fields,
+                               (fast_res,) + fast_st, (ser_res,) + ser_st):
+                if not torch.equal(x, y):
+                    raise AssertionError(
+                        f"round {r}: apply_ops_fast != apply_ops: {f}")
+            cur["st"] = fast_st
+            del ser_st, fast_st
 
             mutate = {"left": 2 if r in (1, 5) else 0}
             seen = []
@@ -1601,6 +1622,18 @@ def phase_main(torch, rng, rounds: int):
                 f"found {bool(pr.found)})")
     launches = counts()
     require_launched(launches, BFS_KERNELS, "on the main path")
+    # one launch for each fast-engine batch with conflicting lanes
+    fast = [e["args"] for e in rec.events() if e["name"] == "ops.apply"]
+    serial_lanes = [a["serial_lanes"] for a in fast]
+    want = sum(not a["replay"] and a["serial_lanes"] > 0 for a in fast)
+    serial_launches = sp_ops.launches - serial_launches
+    if serial_launches != want or not want:
+        raise AssertionError(f"the serial pass kernel ran {serial_launches} "
+                             f"times for {want} batches with serial lanes "
+                             f"({serial_lanes})")
+    log(f"apply_ops_fast == apply_ops on all {rounds} batches (codes + 6 "
+        f"arrays, B={LANES}, capacity {CAPACITY}); serial lanes a batch "
+        f"{serial_lanes}, {serial_launches} serial pass launches")
     if max(rounds_seen) <= 2:
         raise AssertionError("no session needed more than 2 collects")
     if not bool(transpose_invariant(cur["st"])):
@@ -4688,6 +4721,159 @@ def phase_kernel_times(torch, st, pairs, dpairs, index, ist, ipairs,
     return out
 
 
+def update_mix_batch(rng, n: int, device, lanes: int = LANES):
+    """One batch of the update-intensive mix on a graph of ``n`` loaded
+    keys: vertex lanes on the SP_CHURN keys around ``n`` (the top half of
+    the loaded keys is removed, the new half takes free slots), edge lanes
+    on uniform keys of the loaded and the new ones."""
+    from repro_torch.convert import op_batch_from_numpy
+    from repro_torch.core import (OP_ADD_E, OP_ADD_V, OP_CON_E, OP_CON_V,
+                                  OP_REM_E, OP_REM_V)
+
+    ops = np.array([OP_ADD_V, OP_REM_V, OP_CON_V, OP_ADD_E, OP_REM_E,
+                    OP_CON_E], np.int32)
+    opc = rng.choice(ops, size=lanes, p=np.array(UPDATE_MIX) / 100)
+    top = n + SP_CHURN // 2
+    vert = (opc == OP_ADD_V) | (opc == OP_REM_V) | (opc == OP_CON_V)
+    k1 = np.where(vert, rng.integers(n - SP_CHURN // 2, top, lanes),
+                  rng.integers(0, top, lanes))
+    return op_batch_from_numpy(opc, k1, rng.integers(0, top, lanes),
+                               np.full(lanes, -1), device)
+
+
+def sp_bound(torch, ops, codes, mask, v: int, w: int):
+    """(bound ms, bytes) of one serial pass launch from what its lanes did:
+    the slot table read once (5 bytes a slot), the in-row of every vertex
+    removed (4 W bytes), row and column of both mirrors for every slot
+    allocated (2 x 4 (W + V) bytes), two words for every edge written. The
+    lanes depend on each other, so latency rules long before this."""
+    from repro_torch.core import (OP_ADD_V, OP_REM_V, R_EDGE_ADDED,
+                                  R_EDGE_REMOVED, R_TRUE)
+
+    def n(sel):
+        return int((sel & mask).sum())
+
+    ok = codes == R_TRUE
+    nbytes = (5 * v + n(ok & (ops.opcode == OP_REM_V)) * 4 * w
+              + n(ok & (ops.opcode == OP_ADD_V)) * 8 * (w + v)
+              + n((codes == R_EDGE_ADDED) | (codes == R_EDGE_REMOVED)) * 8)
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def phase_serial_pass(torch, rng, main_launches: int) -> dict:
+    """Phase 6b (module docstring): the kernels line's SP entry."""
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.core import OP_NOP, apply_ops, apply_ops_fast
+    from repro_torch.core.ops import (_alloc_schedule, _apply_clean_vectorized,
+                                      _copy, _lane_conflicts)
+    from repro_torch.kernels.serial_pass import ops as sp_ops
+    from repro_torch.kernels.serial_pass.ref import serial_pass_ref
+    from repro_torch.obs import trace
+
+    t0 = time.perf_counter()
+    n = 1 << SP_SCALE
+    arrays, _ = graph500_state_arrays(SP_SCALE, SP_CAPACITY, rng)
+    st = state_from_numpy(*arrays, device=DEVICE)
+    del arrays
+    v, w = st.adj_packed.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per = -(-v // sms)
+    if per <= SP_THREADS:
+        raise AssertionError(f"V = {v} on {sms} SMs: {per} slots a block, "
+                             f"no thread owns two")
+    batch = update_mix_batch(rng, n, DEVICE, LANES)
+    sync(torch)
+    log(f"serial pass at the benchmark's size: Graph500 SCALE {SP_SCALE}, "
+        f"capacity {v} ({per} slots a block on {sms} SMs, the free slots "
+        f"from offset {n - (n // per) * per} of block {n // per}), built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    before = sp_ops.launches
+    with trace.capture() as rec:
+        fast_st, fast_res = apply_ops_fast(st, batch)
+    sync(torch)
+    (app,) = [e["args"] for e in rec.events() if e["name"] == "ops.apply"]
+    ser_st, ser_res = apply_ops(st, batch)
+    for f, x, y in zip(("codes",) + st._fields, (fast_res,) + fast_st,
+                       (ser_res,) + ser_st):
+        if not torch.equal(x, y):
+            raise AssertionError(f"apply_ops_fast != apply_ops at capacity "
+                                 f"{v}: {f}")
+    if sp_ops.launches - before != 1 or app["replay"]:
+        raise AssertionError(f"{sp_ops.launches - before} serial pass "
+                             f"launches at capacity {v}: {app}")
+    del fast_st, ser_st
+    log(f"apply_ops_fast == apply_ops at capacity {v} on one update-mix "
+        f"batch (codes + 6 arrays, B={LANES}, {app['serial_lanes']} serial "
+        f"lanes, one launch)")
+
+    # the launch's input: the batch's copy after the clean pass
+    conflict = _lane_conflicts(batch)
+    wants, slot, _ = _alloc_schedule(st, batch)
+    base = _copy(st)
+    base_res = _apply_clean_vectorized(
+        base, batch, ~conflict & (batch.opcode != OP_NOP), wants, slot)
+    del st
+    work = [t.clone() for t in base]
+    res = base_res.clone()
+
+    def restore():
+        for a, b in zip(work, base):
+            a.copy_(b)
+        res.copy_(base_res)
+
+    def launch():
+        sp_ops._launch(*work, *batch, conflict, res)
+
+    ms = []
+    for _ in range(SP_REPS):
+        restore()
+        sync(torch)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    if not torch.equal(res, fast_res):
+        raise AssertionError("the timed launch's codes != apply_ops_fast's")
+    _, path = profiled(torch, lambda: (restore(), launch()), "serial_pass")
+    _, per_name = _busy_ms(path)
+    dev = [t for k, t in per_name.items() if "serial_lanes" in k]
+    plain = []
+    for _ in range(2):
+        restore()
+        sync(torch)
+        t1 = time.perf_counter()
+        serial_pass_ref(*work, *batch, conflict, res)
+        sync(torch)
+        plain.append((time.perf_counter() - t1) * 1e3)
+    if not torch.equal(res, fast_res):
+        raise AssertionError("the host pass's codes != apply_ops_fast's")
+    bound_ms, nbytes = sp_bound(torch, batch, fast_res, conflict, v, w)
+    lanes = int(conflict.sum())
+    out = {"name": "serial_pass", "route": "cuda",
+           "source": "src/repro_torch/kernels/serial_pass/kernel.cu",
+           "replaces": None, "launches": main_launches, "max_abs_err": 0,
+           "ms": statistics.median(ms), "ms_all": ms,
+           "device_ms": sum(dev) if dev else None,
+           "plain_ms": statistics.median(plain), "bound_ms": bound_ms,
+           "bound_by": "bytes", "library_ms": None, "lanes": lanes,
+           "shape": [v, w, LANES]}
+    log(f"serial_pass (SP): V = {v}, W = {w}, B = {LANES}, {lanes} serial "
+        f"lanes: kernel {out['ms']:.4f} ms/launch median of {SP_REPS} (CUDA "
+        f"events; {min(ms):.4f}-{max(ms):.4f}; "
+        f"{out['ms'] / lanes * 1e3:.2f} us a lane), device "
+        + (f"{out['device_ms']:.4f} ms" if dev else "not measured")
+        + f", host pass {out['plain_ms']:.1f} ms, bound {bound_ms:.6f} ms "
+        f"({nbytes / 1e6:.1f} MB); library_ms null: no PyTorch call applies "
+        f"dependent lanes")
+    del work, base, res, base_res, fast_res, ser_res
+    torch.cuda.empty_cache()
+    return out
+
+
 B8_WIDE_Q = 16384     # B8's wide shape: pairs of the index's live slots
 
 
@@ -5082,8 +5268,11 @@ def main(argv=None) -> int:
     phase_single_push(torch, np.random.default_rng([args.seed, 5]))
     phase_hybrid(torch, rng)
     phase_closure(torch, index_rng)
+    from repro_torch.kernels.serial_pass import ops as sp_ops
+    sp_before = sp_ops.launches
     st, launches, single, pairs, rounds_batches, deg_src = phase_main(
         torch, rng, ROUNDS)
+    sp_main = sp_ops.launches - sp_before
     batch = rounds_batches[0]
     dlaunches, dpairs = phase_dense(torch, st, deg_src, dense_rng)
     phase_profile(torch, main_path_work(st, pairs, batch))
@@ -5103,6 +5292,8 @@ def main(argv=None) -> int:
     kernels = phase_kernel_times(torch, st, pairs, dpairs, index, ist,
                                  ipairs, launches, single["B2"], timer,
                                  dense_rng)
+    kernels.append(phase_serial_pass(
+        torch, np.random.default_rng([args.seed, 14]), sp_main))
     dur_launches = phase_durable(torch, st, deg_src,
                                  np.random.default_rng([args.seed, 7]), card,
                                  undurable)
@@ -5127,6 +5318,8 @@ def main(argv=None) -> int:
         k["lm_family_launches"] = fam_launches[key]
         k["lm_train_launches"] = train_launches[key]
         k["mesh_launches"] = mesh_launches[key]
+    # the serial pass's launches in every phase, the main path's included
+    kernels[-1]["script_launches"] = sp_ops.launches - sp_before
     log(f"card: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,18 +9,18 @@ applied in one call; lane order is the linearization order.
                     collide with no other lane are applied in one vectorized
                     pass, the rest in lane order by the serial correction
                     pass; an allocation schedule that would exhaust the free
-                    slots falls back to full serial replay.
+                    slots sends every lane through the serial pass.
 
 Both are bit-identical to the JAX engines: result codes, slot placement,
 ``ecnt``, ``vver`` and both packed mirrors.
 
 The engines are functional (callers keep old states), so each batch copies
-the state ONCE and mutates the copy in place. The serial pass keeps the
-slot table (vkey, valive, vver, ecnt) on the host for the batch, where each
-lane's lookups are numpy scans, and applies each lane's adjacency writes to
-the device copy as single-word or single-row/column updates: an AddVertex
-scrub touches one row and one column word of each mirror, never a whole
-[V, W] matrix.
+the state ONCE and mutates the copy in place. On a CUDA state the fast
+engine's serial pass is one launch of ``kernels/serial_pass``: the mask,
+the state and the result codes stay on the device. The host pass
+(``kernels/serial_pass/ref.py``: ``_SerialPass`` through ``_serial_masked``)
+is ``apply_ops``, the single-op API, the fast engine's pass on CPU states
+and the kernel's plain version.
 """
 from __future__ import annotations
 
@@ -42,7 +42,6 @@ from repro_torch.core.graph import (
     R_EDGE_PRESENT,
     R_EDGE_REMOVED,
     R_FALSE,
-    R_TABLE_FULL,
     R_TRUE,
     R_VERTEX_NOT_PRESENT,
     WORD_BITS,
@@ -56,6 +55,8 @@ from repro_torch.core.graph import (
     unpack_bits,
     wrap_int32,
 )
+from repro_torch.kernels.serial_pass.ops import serial_pass
+from repro_torch.kernels.serial_pass.ref import _SerialPass, _serial_masked
 from repro_torch.obs import trace as _trace
 
 
@@ -65,156 +66,11 @@ def _copy(state: GraphState) -> GraphState:
         return GraphState(*(t.clone() for t in state))
 
 
-# ----------------------------------------------------------------------------
-# Serial engine: the slot table on the host, adjacency writes on the device
-# ----------------------------------------------------------------------------
-class _SerialPass:
-    """One lane-order pass over a state copy ``st`` that it mutates in
-    place. The slot table lives in numpy for the pass and is written back
-    by ``finish``."""
-
-    def __init__(self, st: GraphState):
-        self.st = st
-        self.vkey = st.vkey.cpu().numpy().copy()
-        self.valive = st.valive.cpu().numpy().copy()
-        self.vver = st.vver.cpu().numpy().copy()
-        self.ecnt = st.ecnt.cpu().numpy().copy()
-
-    def finish(self) -> None:
-        for dst, src in ((self.st.vkey, self.vkey),
-                         (self.st.valive, self.valive),
-                         (self.st.vver, self.vver),
-                         (self.st.ecnt, self.ecnt)):
-            dst.copy_(torch.from_numpy(src))
-
-    # -- lookups ---------------------------------------------------------------
-    def find(self, key: int) -> int:
-        hit = (self.vkey == key) & self.valive
-        return int(hit.argmax()) if hit.any() else -1
-
-    def free_slot(self) -> int:
-        free = self.vkey == EMPTY_KEY
-        return int(free.argmax()) if free.any() else -1
-
-    def bit(self, row: int, col: int) -> bool:
-        word = int(self.st.adj_packed[row, col // WORD_BITS])
-        return (word & bit_mask(col)) != 0
-
-    def in_sources(self, slot: int) -> np.ndarray:
-        """bool[V] on the host: the rows with an edge into ``slot`` (its
-        in-adjacency row), liveness not applied."""
-        return unpack_bits(self.st.adj_in_packed[slot],
-                           len(self.vkey)).cpu().numpy()
-
-    # -- adjacency writes (both mirrors, single words / one row + column) -----
-    def set_edge(self, row: int, col: int, present: bool) -> None:
-        for adj, r, c in ((self.st.adj_packed, row, col),
-                          (self.st.adj_in_packed, col, row)):
-            m = bit_mask(c)
-            cell = adj[r, c // WORD_BITS]  # a view: the RMW is in place
-            if present:
-                cell.bitwise_or_(m)
-            else:
-                cell.bitwise_and_(~m)
-
-    def scrub(self, slot: int) -> None:
-        """Clear row ``slot`` and column bit ``slot`` of both mirrors (the
-        scrub set is its own transpose, so both take the same clear)."""
-        m = ~bit_mask(slot)
-        for adj in (self.st.adj_packed, self.st.adj_in_packed):
-            adj[slot].zero_()
-            adj[:, slot // WORD_BITS].bitwise_and_(m)
-
-    # -- single ops (the JAX ``_apply_one`` branches) ---------------------------
-    def add_vertex(self, k: int) -> int:
-        if self.find(k) >= 0:
-            return R_FALSE
-        tgt = self.free_slot()
-        if tgt < 0:
-            return R_TABLE_FULL
-        self.vkey[tgt] = k
-        self.valive[tgt] = True
-        self.vver[tgt] += 1
-        self.ecnt[tgt] = 0
-        self.scrub(tgt)
-        return R_TRUE
-
-    def remove_vertex(self, k: int) -> int:
-        tgt = self.find(k)
-        if tgt < 0:
-            return R_FALSE
-        # every live in-edge source's ecnt moves (liveness read BEFORE the
-        # mark, so a self-loop bumps the vertex's own ecnt too)
-        in_src = self.in_sources(tgt) & self.valive
-        self.valive[tgt] = False
-        self.vver[tgt] += 1
-        self.ecnt[tgt] += 1
-        self.ecnt += in_src.astype(np.int32)
-        return R_TRUE
-
-    def edge_op(self, k: int, l: int, expect: int, add: bool,
-                undirected: bool = False) -> int:
-        rk, rl = self.find(k), self.find(l)
-        if rk < 0 or rl < 0:
-            return R_VERTEX_NOT_PRESENT
-        if expect >= 0 and self.ecnt[rk] != expect:
-            return R_CAS_FAIL
-        present = self.bit(rk, rl)
-        if add and present:
-            return R_EDGE_PRESENT
-        if not add and not present:
-            return R_EDGE_NOT_PRESENT
-        self.set_edge(rk, rl, add)
-        self.ecnt[rk] += 1
-        if undirected:
-            self.set_edge(rl, rk, add)
-            if rk != rl:
-                self.ecnt[rl] += 1
-        return R_EDGE_ADDED if add else R_EDGE_REMOVED
-
-    def contains_edge(self, k: int, l: int) -> int:
-        rk, rl = self.find(k), self.find(l)
-        if rk < 0 or rl < 0:
-            return R_VERTEX_NOT_PRESENT
-        return R_EDGE_PRESENT if self.bit(rk, rl) else R_EDGE_NOT_PRESENT
-
-    def apply_one(self, opcode: int, k1: int, k2: int, expect: int) -> int:
-        # out-of-range opcodes clip to [NOP, HasE], as the JAX lax.switch does
-        opcode = min(max(opcode, OP_NOP), OP_CON_E)
-        if opcode == OP_ADD_V:
-            return self.add_vertex(k1)
-        if opcode == OP_REM_V:
-            return self.remove_vertex(k1)
-        if opcode == OP_CON_V:
-            return R_TRUE if self.find(k1) >= 0 else R_FALSE
-        if opcode in (OP_ADD_E, OP_REM_E):
-            return self.edge_op(k1, k2, expect, add=opcode == OP_ADD_E)
-        if opcode == OP_CON_E:
-            return self.contains_edge(k1, k2)
-        return R_FALSE
-
-
-def _serial_masked(st: GraphState, ops: OpBatch, lanes, res: np.ndarray,
-                   serial_pass=_SerialPass):
-    """Apply the selected ``lanes`` (ascending) of ``ops`` to ``st`` in
-    place, in lane order; unselected lanes keep their ``res`` entry. This
-    is both the reference engine (all lanes) and the fast engine's
-    correction pass (the conflicting lanes). ``serial_pass`` is the pass
-    class (the sharded engine brings its own)."""
-    # repro-torch-lint: allow(trace-purity) — the serial pass runs on the host: one copy of the batch
-    host = np.stack([t.cpu().numpy() for t in ops]).astype(np.int64)
-    sp = serial_pass(st)
-    for i in lanes:
-        res[i] = sp.apply_one(*(int(x) for x in host[:, i]))
-    sp.finish()
-    return res
-
-
 def apply_ops(state: GraphState, ops: OpBatch):
     """Apply a batch with exact lane-order linearization (reference engine).
     Returns (new state, result codes int32[B])."""
     st = _copy(state)
-    with _trace.span("ops.serial_pass", lanes=ops.lanes):
+    with _trace.span("ops.serial_pass", lanes=ops.lanes, engine="host"):
         res = _serial_masked(st, ops, range(ops.lanes),
                              np.full((ops.lanes,), R_FALSE, np.int32))
         return st, torch.from_numpy(res).to(state.device)
@@ -390,23 +246,27 @@ def apply_ops_fast(state: GraphState, ops: OpBatch):
             conflict = _lane_conflicts(ops)
             clean = ~conflict & (ops.opcode != OP_NOP)
             wants, slot, overflow = _alloc_schedule(state, ops)
-            # repro-torch-lint: allow(trace-purity) — capacity overflow picks the engine: one scalar a batch
-            replay = bool(overflow)
-        if replay:
-            # capacity exhaustion couples lanes across keys: full serial replay
-            sp.set(serial_lanes=ops.lanes, replay=True)
-            return apply_ops(state, ops)
+            # repro-torch-lint: allow(trace-purity) — one read a batch: the overflow flag picks the serial lanes, and they are counted
+            replay, lanes = torch.stack([overflow.long(),
+                                         conflict.sum()]).tolist()
         st = _copy(state)
-        with _trace.span("ops.clean_pass"):
-            res = _apply_clean_vectorized(st, ops, clean, wants, slot)
-        with _trace.span("ops.serial_pass") as ser:
-            # repro-torch-lint: allow(trace-purity) — the conflicting lanes and their results go to the serial pass
-            lanes = torch.nonzero(conflict).flatten().tolist()
-            ser.set(lanes=len(lanes))
+        if replay:
+            # capacity exhaustion couples lanes across keys: every lane
+            # takes the serial pass
+            serial, lanes = torch.ones_like(conflict), ops.lanes
+            res = torch.full((ops.lanes,), R_FALSE, dtype=torch.int32,
+                             device=state.device)
+        else:
+            serial = conflict
+            with _trace.span("ops.clean_pass"):
+                res = _apply_clean_vectorized(st, ops, clean, wants, slot)
+        # the serial lanes in lane order: one launch on the card, the host
+        # pass on the CPU
+        with _trace.span("ops.serial_pass", lanes=lanes,
+                         engine="device" if st.vkey.is_cuda else "host"):
             if lanes:
-                res_np = _serial_masked(st, ops, lanes, res.cpu().numpy())  # repro-torch-lint: allow(trace-purity) — the serial pass reads the results on the host
-                res = torch.from_numpy(res_np).to(state.device)
-        sp.set(serial_lanes=len(lanes), replay=False)
+                serial_pass(*st, *ops, serial, res)
+        sp.set(serial_lanes=lanes, replay=replay > 0)
         return st, res
 
 

@@ -115,6 +115,7 @@ from repro_torch.core.graph import (
     unpack_bits,
     unpack_dense,
 )
+from repro_torch.kernels.serial_pass.ref import _SerialPass, _serial_masked
 from repro_torch.obs import trace as _trace
 from repro_torch.obs.metrics import global_registry as _obs_registry
 from repro_torch.parallel import collectives
@@ -399,7 +400,7 @@ def _apply_clean(st: ShardedGraphState, ops: OpBatch, active, wants, slot):
     return res
 
 
-class _ShardedSerialPass(gops._SerialPass):
+class _ShardedSerialPass(_SerialPass):
     """The serial correction pass on a sharded work copy: the slot table
     on the host as in the dense pass; each adjacency read or write goes to
     the shard that owns the row."""
@@ -473,8 +474,8 @@ def apply_ops_fast(state: ShardedGraphState, ops: OpBatch):
         # repro-torch-lint: allow(trace-purity) — the conflicting lanes and their results go to the serial pass
         lanes = torch.nonzero(conflict).flatten().tolist()
     if lanes:
-        res_np = gops._serial_masked(st, ops, lanes, res.cpu().numpy(),  # repro-torch-lint: allow(trace-purity) — the serial pass reads the results on the host
-                                     serial_pass=_ShardedSerialPass)
+        res_np = _serial_masked(st, ops, lanes, res.cpu().numpy(),  # repro-torch-lint: allow(trace-purity) — the serial pass reads the results on the host
+                                pass_cls=_ShardedSerialPass)
         res = torch.from_numpy(res_np).to(state.device)
     st._replicate()
     return st, res

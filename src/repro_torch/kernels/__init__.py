@@ -6,6 +6,8 @@
                   supersteps
   edge_update     B5 and B9, the packed and dense lane-ordered edge writes
   label_join      B4 and B8, the packed and dense 2-hop label joins
+  serial_pass     no TPU kernel: ``apply_ops_fast``'s serial correction
+                  pass, which the JAX package runs as a ``lax.fori_loop``
 
 Each package holds ``kernel.cu`` (the kernel, built by ``_build``),
 ``ref.py`` (its plain PyTorch version) and ``ops.py`` (the wrappers: a CUDA

@@ -277,8 +277,8 @@ def test_cudasrc_reads_the_port_sources():
 
 
 def test_every_launch_site_matches_its_launcher():
-    """The 8 ``_build.launch`` sites of the port's ops.py files, resolved
-    through their wrappers' callers to 10 launchers, each pass the C
+    """The 9 ``_build.launch`` sites of the port's ops.py files, resolved
+    through their wrappers' callers to 11 launchers, each pass the C
     parameter count of their launcher less the stream."""
     sites = []
     for ops in sorted(KERNELS.glob("*/ops.py")):
@@ -292,8 +292,8 @@ def test_every_launch_site_matches_its_launcher():
             assert s.package == ops.parent.name
             assert s.n_args + 1 == unit.c_functions[s.launcher].n_params
             sites.append((id(s.call), s.launcher))
-    assert len({c for c, _ in sites}) == 8
-    assert len({name for _, name in sites}) == 10
+    assert len({c for c, _ in sites}) == 9
+    assert len({name for _, name in sites}) == 11
 
 
 def test_every_kernel_package_has_a_meta():
@@ -421,7 +421,7 @@ def test_ptxas_demangle(mangled, name):
 
 
 def test_ptxas_sample_report_matches_meta():
-    """The saved ``ptxas -v`` report of the five libraries, built for
+    """The saved ``ptxas -v`` report of the six libraries, built for
     sm_90a with ``_build.NVCC_FLAGS`` from this tree's sources, agrees
     with every KERNEL_META. A change to a kernel's sources refreshes the
     sample from its build's ``.log`` files."""
@@ -429,7 +429,7 @@ def test_ptxas_sample_report_matches_meta():
                                          KERNELS.glob("*/kernel.cu"))
     rows, failures = ptxas.check_build(SAMPLE_LIBS)
     assert failures == []
-    assert len(rows) == 46
+    assert len(rows) == 47
     by = {(r["package"], r["kernel"]): r for r in rows}
     assert by["bfs_pull_step", "pull_rows<true, true>"]["smem"] == 46340
     assert by["bfs_step", "single::push_single"]["smem"] == 19808

@@ -84,7 +84,7 @@ def test_traced_submit_nests_the_write_path_and_counts_serial_lanes():
     assert conflicts == 5      # lanes 0, 1 (key 1), 2 (RemV), 3, 4 (key 4)
     assert app["args"] == {"lanes": len(BATCH), "serial_lanes": conflicts,
                            "replay": False}
-    assert ser["args"] == {"lanes": conflicts}
+    assert ser["args"] == {"lanes": conflicts, "engine": "host"}
     assert sub["args"] == {"lanes": len(BATCH), "seq": 3}
     assert len(codes) == len(BATCH)
 
@@ -104,7 +104,8 @@ def test_overflowing_batch_reports_a_replay_of_every_lane_and_the_grow():
     assert applies[1]["args"]["replay"] is False
     replay_pass = [s for s in _spans(ev, "ops.serial_pass")
                    if _inside(s, applies[0])]
-    assert [s["args"] for s in replay_pass] == [{"lanes": 7}]
+    assert [s["args"] for s in replay_pass] == [{"lanes": 7,
+                                                 "engine": "host"}]
     assert list(codes) == [T.R_TRUE] * 7
 
 
