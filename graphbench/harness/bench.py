@@ -58,8 +58,11 @@ def forbidden_modules(modules=None) -> list:
 
 
 def warm_rounds(mix: dict) -> int:
+    """Enough rounds that each of the mix's batches comes twice."""
     sub = mix.get("submit")
-    return max(WARM_ROUNDS, 2 * int(sub["every"]) if sub else 0)
+    ex = (mix.get("clients") or {}).get("exclusive")
+    every = int(sub["every"]) if sub else int(ex["every"]) if ex else 0
+    return max(WARM_ROUNDS, 2 * every)
 
 
 def _sync(device) -> None:
@@ -125,7 +128,9 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     log(stationarity(logs + ctx.logs_c if trace else logs))
     log(tenths(logs if not trace else ctx.logs_c))
 
-    # the check: the program's final store, then the reference's replay
+    # the check: the batches still awaited, the program's final store,
+    # then the reference's replay
+    s.drained = loop.pump(s)
     t_check = time.perf_counter()
     grows = s.server.get_metrics().get("server.grow_events", 0)
     sets = (final_sets or _program_sets)(s)
@@ -134,7 +139,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     numbers, answers = check.compare(
         s, window, SAMPLE_SESSIONS,
         np.random.default_rng(loop.seed_seq(seed, 2)), sets, grows, device)
-    checks = {k: (v, check.LIMITS[k]) for k, v in numbers.items()}
+    limits = check.LIMITS | check.CLIENT_LIMITS
+    checks = {k: (v, limits[k]) for k, v in numbers.items()}
     correct = all(v <= lim for v, lim in checks.values())
     log(f"checked: {sum(lg.lanes for lg in s.rounds)} lanes of "
         f"{len(s.rounds)} rounds, {answers} GetPath answers, in "
@@ -198,24 +204,33 @@ def tenths(logs: list) -> str:
 
 
 def _program_sets(s):
-    """The final store's sets, then the store freed."""
+    """The final store's sets, then the server and its store freed."""
+    import gc
+
     import torch
 
     state = s.server.state
     out = check.store_sets(state, s.graph.n + int(s.mix["churn_keys"]))
     del state
-    s.server.state = None
+    s.server = s.compact = None       # the compaction closure holds it too
+    gc.collect()
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
     return out
 
 
 def _failed(lg) -> int:
-    """Lanes refused (TABLE FULL, RECOVERING) and queries of a session that
-    ran out of collects."""
+    """Lanes refused (TABLE FULL, RECOVERING), lanes of a client batch
+    that was not applied (aborted, rejected, never landed) and queries of
+    a session that ran out of collects."""
     bad = 0
     if lg.codes is not None:
         bad += int(np.isin(np.asarray(lg.codes), (7, 9)).sum())
+    for tk in lg.tickets or ():
+        if tk.status != "applied":
+            bad += len(tk.ops)
+        elif tk.codes is not None:
+            bad += int(np.isin(tk.codes, (7, 9)).sum())
     if lg.answers is not None and lg.collects >= 64:
         bad += lg.queries
     return bad

@@ -5,7 +5,11 @@ program ran (set-up's warm rounds and the window's), lane by lane, from
 the same loaded edge list, and:
 
   codes_wrong      lanes whose result code differs from the reference's
-                   (every lane of every batch)
+                   (every lane of every batch); of a ``clients`` mix, the
+                   reference replays the batches that landed in a round's
+                   pumps in the order the server claims (its epochs, then
+                   its batch ids), and every lane of a batch that never
+                   landed counts
   paths_wrong      GetPath answers that differ, over a sample of the
                    window's sessions drawn from the seed (and its last
                    one): the found flag against the reference's search on
@@ -20,17 +24,22 @@ the same loaded edge list, and:
   in_edges_wrong   the same of the in-mirror, read transposed
   grow_events      capacity grows of the server (a grow would need four
                    times the state's memory)
+  order_wrong      (``clients`` mixes only) batches that landed before,
+                   in the order the server claims, a batch their client
+                   had submitted before them
 
-Every number is exact: its limit is 0.
+Every number is exact: its limit is 0. The reference is the
+``ReferenceStore`` of the file the configuration names.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from graphbench.harness.reference import ReferenceStore
+from graphbench.harness import spec
 
 LIMITS = {"codes_wrong": 0, "paths_wrong": 0, "vertices_wrong": 0,
           "edges_wrong": 0, "in_edges_wrong": 0, "grow_events": 0}
+CLIENT_LIMITS = {"order_wrong": 0}   # compared where the mix has clients
 ROWS_A_BLOCK = 8192
 
 
@@ -45,7 +54,7 @@ def sampled_sessions(rounds: list, window: set, n: int, rng) -> set:
     return {have[i] for i in pick} | {have[-1]}
 
 
-def answer_wrong(ref: ReferenceStore, pair, hops: int, answer) -> bool:
+def answer_wrong(ref, pair, hops: int, answer) -> bool:
     found, keys = answer
     if bool(found) != (hops >= 0):
         return True
@@ -110,6 +119,29 @@ def set_gap(got: np.ndarray, want: np.ndarray) -> int:
     return len(got) + len(want) - 2 * common + dup
 
 
+def lanes_wrong(want: np.ndarray, got) -> int:
+    """Lanes whose code differs, and lanes that one side lacks."""
+    got = np.asarray(got).reshape(-1)
+    n = min(len(want), len(got))
+    return int((want[:n] != got[:n]).sum()) + abs(len(want) - len(got))
+
+
+def order_wrong(rounds: list) -> int:
+    """Batches that landed before, in the claimed order, a batch their
+    client had submitted before them."""
+    latest: dict = {}
+    wrong = 0
+    for log in rounds:
+        for tk in log.tickets or ():
+            if tk.status != "applied":
+                continue
+            if tk.client in latest and tk.claimed < latest[tk.client]:
+                wrong += 1
+            latest[tk.client] = max(latest.get(tk.client, tk.claimed),
+                                    tk.claimed)
+    return wrong
+
+
 def compare(setup, window: set, sample_n: int, rng, final_sets,
             grow_events: int, device="cpu"):
     """({name: value} of every number compared, GetPath answers checked).
@@ -117,19 +149,21 @@ def compare(setup, window: set, sample_n: int, rng, final_sets,
     stand-in); the reference searches on ``device``."""
     g = setup.graph
     nk = g.n + int(setup.mix["churn_keys"])
-    ref = ReferenceStore(g.n, nk, setup.capacity, g.u, g.v,
-                         setup.churn_start, device=device)
+    ref = spec.reference_store(setup.cfg)(g.n, nk, setup.capacity, g.u, g.v,
+                                          setup.churn_start, device=device)
     sample = sampled_sessions(setup.rounds, window, sample_n, rng)
     codes_wrong = paths_wrong = 0
+
+    def replay(landed):
+        return sum(lanes_wrong(ref.apply_batch(tk.ops), tk.codes)
+                   for tk in landed if tk.status == "applied")
+
     for log in setup.rounds:
         if log.compacted:
             ref.compact()
         if log.batch is not None:
-            want = ref.apply_batch(log.batch)
-            got = np.asarray(log.codes).reshape(-1)
-            n = min(len(want), len(got))
-            codes_wrong += int((want[:n] != got[:n]).sum())
-            codes_wrong += abs(len(want) - len(got))
+            codes_wrong += lanes_wrong(ref.apply_batch(log.batch), log.codes)
+        codes_wrong += replay(log.landed)
         if log.index in sample:
             hops = ref.distances(log.pairs)
             answers = list(log.answers) + [(False, [])] * max(
@@ -138,15 +172,22 @@ def compare(setup, window: set, sample_n: int, rng, final_sets,
                                zip(log.pairs.tolist(), hops.tolist(),
                                    answers))
             paths_wrong += max(0, len(log.answers) - len(log.pairs))
+    codes_wrong += replay(setup.drained)
+    codes_wrong += sum(len(tk.ops) for log in setup.rounds
+                       for tk in log.tickets or () if tk.done_ns is None)
     keys, out_ids, in_ids = final_sets
     alive = np.flatnonzero(np.frombuffer(bytes(ref.alive), np.uint8))
     u, v = ref.live_edges()
     want_ids = u * nk + v
-    return {
+    numbers = {
         "codes_wrong": codes_wrong,
         "paths_wrong": paths_wrong,
         "vertices_wrong": set_gap(keys, alive),
         "edges_wrong": set_gap(out_ids, want_ids),
         "in_edges_wrong": set_gap(in_ids, want_ids),
         "grow_events": int(grow_events),
-    }, sum(len(log.pairs) for log in setup.rounds if log.index in sample)
+    }
+    if setup.mix.get("clients"):
+        numbers["order_wrong"] = order_wrong(setup.rounds)
+    return numbers, sum(len(log.pairs) for log in setup.rounds
+                        if log.index in sample)

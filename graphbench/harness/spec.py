@@ -4,7 +4,9 @@ A cell ``<config>.<mix>`` reads ``configs/<config>.json`` and
 ``traffic/<mix>.json``; an end-to-end metric ``<name>`` is computed by
 ``endtoend/<name>.py`` and a per-layer metric by ``metrics/<name>.py``,
 each a module with ``read(ctx)`` that returns a number, or None where it
-finds nothing to read.
+finds nothing to read. A configuration's ``reference`` key names the file
+of its plain reference (relative to the checkout's root), whose
+``ReferenceStore`` the check and the control use.
 """
 from __future__ import annotations
 
@@ -38,12 +40,23 @@ def metrics_of(bench: dict, kind: str, workload: str) -> list:
             if "workloads" not in m or workload in m["workloads"]]
 
 
-def reader(folder: str, name: str):
-    """``read`` of ``graphbench/<folder>/<name>.py``."""
-    path = BENCH_DIR / folder / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"graphbench_{folder}_{name.replace('.', '_').replace('-', '_')}",
-        path)
+def _module(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(folder: str, name: str):
+    """``read`` of ``graphbench/<folder>/<name>.py``."""
+    return _module(
+        BENCH_DIR / folder / f"{name}.py",
+        f"graphbench_{folder}_{name.replace('.', '_').replace('-', '_')}").read
+
+
+def reference_store(cfg: dict):
+    """``ReferenceStore`` of the file the configuration's ``reference``
+    key names."""
+    return _module(ROOT / cfg["reference"],
+                   f"graphbench_reference_{cfg['name']}".replace(
+                       ".", "_").replace("-", "_")).ReferenceStore

@@ -1,9 +1,10 @@
 """serial_lanes_per_batch (mutation): the lanes of a batch that the serial
-pass applies one by one on the host, the mean over the ``ops.apply``
-spans of the second part of a traced window (their ``serial_lanes``: the
-lanes ``_lane_conflicts`` marks, or every lane where the allocation
-schedule overflowed and the whole batch was replayed). Nothing where the
-program records no such span."""
+correction pass applies one by one (on a CUDA state, one launch of the
+``serial_pass`` kernel on the card; the host pass for CPU states), the
+mean over the ``ops.apply`` spans of the second part of a traced window
+(their ``serial_lanes``: the lanes ``_lane_conflicts`` marks, or every
+lane where the allocation schedule overflowed and the whole batch was
+replayed). Nothing where the program records no such span."""
 
 
 def read(ctx):

@@ -11,7 +11,10 @@ the mix for ``--seconds``; the plain reference checks what the program
 answered; the last line of standard output is the result as JSON, and the
 numbers compared, each beside its limit, are the last lines of standard
 error. Exits 2 without a result where there is no card, or fewer than the
-cell asks for, and 3 where a forbidden module was loaded.
+cell asks for, 3 where a forbidden module was loaded, and 4 where set-up
+stopped because the configuration asks the server for a setting the
+harness does not know or the program refuses (one line on standard error
+says which).
 """
 from __future__ import annotations
 
@@ -77,7 +80,7 @@ def main(argv=None) -> int:
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import torch
 
-    from graphbench.harness import bench, spec
+    from graphbench.harness import bench, loop, spec
 
     chips = spec.cell(spec.load_benchmark(), args.workload)["chips"]
     if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
@@ -90,8 +93,12 @@ def main(argv=None) -> int:
         print(msg, file=sys.stderr, flush=True)
 
     log(f"card: {card_line()}")
-    line, checks = bench.run(args.workload, args.seed, args.seconds,
-                             bool(args.trace), log=log)
+    try:
+        line, checks = bench.run(args.workload, args.seed, args.seconds,
+                                 bool(args.trace), log=log)
+    except loop.SetupRefused as exc:
+        log(f"graphbench: set-up stopped: {exc}")
+        return 4
     found = bench.forbidden_modules()
     if found:
         log(f"graphbench: modules loaded that the run may not load: "

@@ -68,11 +68,17 @@ def test_benchmark_imports_no_old_benchmark_nor_jax(path):
 
 def test_reference_imports_nothing_of_the_program():
     for name in ("reference.py", "traffic.py", "graph500.py", "check.py",
-                 "stats.py", "roofline.py"):
+                 "stats.py", "roofline.py", "spec.py"):
         assert "repro_torch" not in _imports(BENCH / "harness" / name), name
-    # the reference module has no import of the program, even deferred
-    assert "repro_torch" not in (BENCH / "harness" /
-                                 "reference.py").read_text()
+    # every configuration's reference has no import of the program, even
+    # deferred, and lies under the benchmark's folder
+    refs = {json.loads(p.read_text())["reference"]
+            for p in sorted((BENCH / "configs").glob("*.json"))}
+    assert "graphbench/harness/reference.py" in refs
+    for ref in refs:
+        path = (ROOT / ref).resolve()
+        assert path.is_file() and BENCH in path.parents, ref
+        assert "repro_torch" not in path.read_text(), ref
 
 
 def test_refuses_to_run_without_a_card(tmp_path):
