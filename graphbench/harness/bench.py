@@ -53,7 +53,8 @@ _T_IMPORT = time.perf_counter()
 def forbidden_modules(modules=None) -> list:
     """Loaded modules (``sys.modules`` unless given) whose top-level name
     is JAX's, Flax's, the JAX package's or the old benchmarks'."""
-    tops = {name.split(".")[0] for name in list(modules or sys.modules)}
+    loaded = sys.modules if modules is None else modules
+    tops = {name.split(".")[0] for name in list(loaded)}
     return sorted(tops & set(FORBIDDEN))
 
 

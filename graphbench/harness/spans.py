@@ -9,13 +9,17 @@ recorder does not publish ``epoch_ns`` gives no clock; the readers that
 need one return None there.
 
 A thread's spans nest by containment (the benchmark's caller is one
-thread), so at any instant one span is the innermost open one.
+thread), so at any instant one span is the innermost open one. Idle
+while that is a request's root (``ROOTS``: a batch's ``serve.submit``, a
+session's ``session.get_paths``, an ingest pool's admission round
+``ingest.round``) or no span at all is idle that no layer names.
 """
 from __future__ import annotations
 
-# the outermost span of a request: idle under one of them, and under no
-# span at all, is idle that no layer of the program names
-ROOTS = frozenset({"serve.submit", "session.get_paths"})
+# the outermost span of a request (a batch, a session, an ingest pool's
+# admission round): idle under one of them, and under no span at all, is
+# idle that no layer of the program names
+ROOTS = frozenset({"serve.submit", "session.get_paths", "ingest.round"})
 
 
 def epoch_ns():

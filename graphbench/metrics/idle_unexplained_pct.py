@@ -1,10 +1,12 @@
 """idle_unexplained_pct (device): the share of the device's idle time in
 the second part of a traced window, in percent, during which the
 innermost open program span is a request's root (``serve.submit``,
-``session.get_paths``) or there is no span at all: idle that no layer of
-the program names. The spans are laid over the device trace of the same
-part on the host's clock (``harness/spans.py``). Nothing where the
-clocks were not matched or the device was never idle."""
+``session.get_paths``, and a client round's ``ingest.round``, which holds
+only ``ingest.admit`` and ``ingest.fused_apply``) or there is no span at
+all: idle that no layer of the program names. The spans are laid over
+the device trace of the same part on the host's clock
+(``harness/spans.py``). Nothing where the clocks were not matched or the
+device was never idle."""
 from graphbench.harness import spans as sp
 
 

@@ -4,8 +4,10 @@ SCALE 8: the server's settings (``server``), the plain reference
 streams of the mixes without clients, pinned.
 
 A clients mix runs against stand-ins built on the port's own
-``IngestPool``, seated on a prebuilt state: the seam that today's
-``GraphCoServer(ingest=True)`` refuses."""
+``IngestPool``, seated on a prebuilt state: a seam that
+``GraphCoServer(ingest=True)`` may refuse. The refusal path is pinned on
+a stand-in that refuses, so these tests hold whether the live program
+refuses or seats."""
 from __future__ import annotations
 
 import hashlib
@@ -99,6 +101,25 @@ class PoolServer(serve_loop.GraphCoServer):
     state = property(serve_loop.GraphCoServer.state.fget, _seat)
 
 
+class RefusingServer(serve_loop.GraphCoServer):
+    """A server that refuses pool-backed ingestion: built with
+    ``ingest=True``, its ``state`` setter raises, whatever the live
+    program's does."""
+
+    def __init__(self, *, ingest=False, **kw):
+        super().__init__(ingest=ingest, **kw)
+        self.refuses = ingest
+
+    def _seat(self, value):
+        if self.refuses:
+            raise AttributeError(
+                "state is pool-owned under multi-tenant ingestion; "
+                "mutate through submit()/submit_client()")
+        self._state = value
+
+    state = property(serve_loop.GraphCoServer.state.fget, _seat)
+
+
 class LifoPool(IngestPool):
     """Admission scans the queue newest first: legal where each client has
     one batch in the queue, and the order it claims is then not the order
@@ -166,9 +187,9 @@ class SwapsC0(PoolServer):
 @pytest.fixture
 def deployment(monkeypatch):
     """BENCHMARK.json with the cell ``g500-s18-ingest.clients`` besides
-    its own (reporting ``batch_p95_ms``, ``getpath_p95_ms`` and
-    ``submit_ms.p50`` too), every configuration at SCALE 8, and the
-    program's server replaced by ``use(cls)``'s stand-in."""
+    its own (listed by every metric that lists cells, as a cell that
+    both mutates and reads would be), every configuration at SCALE 8,
+    and the program's server replaced by ``use(cls)``'s stand-in."""
     orig_bench, orig_read = spec.load_benchmark, spec.read_json
 
     def load_benchmark(root=spec.ROOT):
@@ -176,8 +197,7 @@ def deployment(monkeypatch):
         b["workloads"].append({"name": CELL, "config": CONFIG,
                                "traffic": MIX, "chips": 1, "why": "test"})
         for m in b["end_to_end"] + b["per_layer"]:
-            if m["name"] in ("batch_p95_ms", "getpath_p95_ms",
-                             "submit_ms.p50"):
+            if "workloads" in m:
                 m["workloads"].append(CELL)
         return b
 
@@ -197,7 +217,7 @@ def deployment(monkeypatch):
 
     def use(cls):
         monkeypatch.setattr(serve_loop, "GraphCoServer", cls)
-        return cls.made
+        return getattr(cls, "made", None)
     return use
 
 
@@ -242,10 +262,11 @@ def test_unknown_server_key_fails_at_setup(monkeypatch):
 
 
 def test_ingest_server_stops_in_setup_with_one_line(deployment):
-    """Today's port refuses to seat a state in a pool-backed server: the
-    run stops in set-up, at once, with one line naming the setting."""
+    """A program that refuses to seat a state in a pool-backed server
+    stops the run in set-up, at once, with one line naming the setting."""
     import time
 
+    deployment(RefusingServer)
     t = time.perf_counter()
     with pytest.raises(loop.SetupRefused) as err:
         run(CELL)
@@ -255,9 +276,9 @@ def test_ingest_server_stops_in_setup_with_one_line(deployment):
     assert "AttributeError" in msg and "pool-owned" in msg
 
 
-def test_run_exits_on_a_refused_setting(deployment, monkeypatch, capsys):
-    """``run.py`` turns the refusal into exit 4, one line on standard
-    error, and no result."""
+def run_py_on_cpu(monkeypatch):
+    """``run.py``'s ``main`` with the card's checks passed and the run on
+    the CPU; forbidden modules are those the run itself loads."""
     sys.path.insert(0, str(ROOT / "graphbench"))
     import run as run_py
     import torch
@@ -270,16 +291,46 @@ def test_run_exits_on_a_refused_setting(deployment, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     monkeypatch.setattr(torch, "set_num_threads", lambda n: None)
     monkeypatch.setattr(run_py, "card_line", lambda: "no card")
-    real = bench.run
+    real, loaded = bench.run, set(sys.modules)
     monkeypatch.setattr(bench, "run", lambda *a, **kw: real(
         *a, **dict(kw, device="cpu")))
-    rc = run_py.main(["--workload", CELL, "--seed", "5", "--seconds", "1",
-                      "--trace", "0"])
+    real_forbidden = bench.forbidden_modules
+    monkeypatch.setattr(bench, "forbidden_modules", lambda: real_forbidden(
+        set(sys.modules) - loaded))
+    return run_py.main
+
+
+def test_run_exits_on_a_refused_setting(deployment, monkeypatch, capsys):
+    """``run.py`` turns the refusal into exit 4, one line on standard
+    error, and no result."""
+    deployment(RefusingServer)
+    rc = run_py_on_cpu(monkeypatch)(["--workload", CELL, "--seed", "5",
+                                     "--seconds", "1", "--trace", "0"])
     out = capsys.readouterr()
     assert rc == 4 and out.out == ""
     last = out.err.strip().splitlines()[-1]
     assert last.startswith("graphbench: set-up stopped: the program refused")
     assert '"ingest": true' in last
+
+
+def test_run_prints_a_correct_line_once_the_server_seats(
+        deployment, monkeypatch, capsys):
+    """The same cell and setting, against a program that seats the state
+    in its pool: set-up passes, exit 0, a correct line last on standard
+    output and the checks last on standard error."""
+    made = deployment(PoolServer)
+    rc = run_py_on_cpu(monkeypatch)(["--workload", CELL, "--seed", "5",
+                                     "--seconds", str(SECONDS),
+                                     "--trace", "0"])
+    out = capsys.readouterr()
+    assert rc == 0, out.err[-2000:]
+    line = json.loads(out.out.strip().splitlines()[-1])
+    assert line["correct"] and line["attempted"] > 0
+    assert made[0].pool is not None and made[0].pool.stats.applied > 0
+    names = set(check.LIMITS) | set(check.CLIENT_LIMITS)
+    last = out.err.strip().splitlines()[-len(names):]
+    assert {ln.split()[1] for ln in last} == names
+    assert all(ln.startswith("check ") for ln in last)
 
 
 # -- a configuration names its reference -------------------------------------
@@ -321,6 +372,25 @@ def test_client_mix_through_the_pool_is_correct(deployment):
     assert pool.stats.applied == pool.stats.submitted > 0
     assert pool.stats.retries > 0
     assert pool.stats.epochs > pool.stats.fused_calls
+
+
+def test_traced_client_mix_reports_its_layers(deployment):
+    """A traced run of a clients mix: correct, with the endpoint's,
+    the session's and the mutation's numbers of its untraced part and
+    its program spans."""
+    deployment(PoolServer)
+    line, checks = bench.run(CELL, 6, 1.0, True, device="cpu",
+                             log=lambda m: None)
+    assert line["correct"], checks
+    m = line["metrics"]
+    assert {"serial_lanes_per_batch", "submit_ms.p50",
+            "session_ms.p50"} <= set(m)
+    assert m["serial_lanes_per_batch"]["value"] > 0
+    assert m["submit_ms.p50"]["value"] > 0
+    assert m["session_ms.p50"]["value"] > 0
+    # on the CPU the device's numbers are not measured
+    assert not {"idle_unexplained_pct", "device_idle_pct",
+                "mutation_device_ms"} & set(m)
 
 
 def test_check_follows_the_order_the_server_claims(deployment):

@@ -1,8 +1,9 @@
 """The readers of the program's own spans (``harness/spans.py`` and the
 metrics built on it) on hand-made spans and a device trace with hand-made
 device events: the epoch mapping, the innermost open span, device idle
-inside a span, None where the clocks were not matched or there is
-nothing to read; and a traced run on the CPU that reports the counter."""
+inside a span, the request roots (a pool's ``ingest.round`` among them),
+None where the clocks were not matched or there is nothing to read; and
+a traced run on the CPU that reports the counter."""
 from __future__ import annotations
 
 import sys
@@ -126,6 +127,49 @@ def test_idle_between_spans_is_unexplained(clock):
     ctx = ctx_for(EVENTS, device_trace([(0, 100), (120, 200)]))
     assert read("idle_unexplained_pct", ctx) == pytest.approx(100.0)
     assert read("serial_pass_idle_ms", ctx) == 0
+
+
+def test_a_window_without_a_pool_round_reads_as_before(clock):
+    # busy [5, 30), [45, 60), [85, 125), [155, 170): 58 of 105 us of idle
+    # under a root or no span; the value the reader gave before
+    # ``ingest.round`` became a root
+    ctx = ctx_for(EVENTS, device_trace([(5, 30), (45, 60), (85, 125),
+                                        (155, 170)]))
+    assert read("idle_unexplained_pct", ctx) == pytest.approx(
+        55.23809523809524)
+
+
+# a pool's admission round and a session, on the recorder's clock (us):
+#   ingest.round [0, 100) > ingest.admit [5, 15)
+#                         > ingest.fused_apply [20, 70) > ops.apply [25, 65)
+#   session.get_paths [110, 150) > session.to_host [120, 130)
+POOL_EVENTS = [
+    ev("ingest.round", 0, 100, admitted=2, applied=2, epoch=3),
+    ev("ingest.admit", 5, 10),
+    ev("ingest.fused_apply", 20, 50, lanes=8, pad=8, batches=2),
+    ev("ops.apply", 25, 40, lanes=8, serial_lanes=0, replay=False),
+    ev("session.get_paths", 110, 40, pairs=2),
+    ev("session.to_host", 120, 10, bytes=64),
+]
+
+
+@pytest.mark.parametrize("busy,unexplained", [
+    # idle [10, 50), [60, 115), [125, 150): 120 us; named: admit 5,
+    # fused_apply 5 + 5, ops.apply 25 + 5, to_host 5; unexplained: the
+    # round alone 5 + 30, no span 10, get_paths 5 + 20
+    ([(0, 10), (50, 60), (115, 125)], 70 / 120),
+    # idle [70, 100) under the round alone, [100, 110) under no span
+    ([(0, 70), (110, 150)], 1.0),
+    # idle [5, 15) inside admission, [20, 25) and [65, 70) inside the
+    # fused apply, [30, 60) inside ops.apply: all named
+    ([(0, 5), (15, 20), (25, 30), (60, 65), (70, 150)], 0.0),
+])
+def test_idle_under_the_pool_round_alone_is_unexplained(clock, busy,
+                                                         unexplained):
+    assert "ingest.round" in sp.ROOTS
+    ctx = ctx_for(POOL_EVENTS, device_trace(busy), 0, 150)
+    assert read("idle_unexplained_pct", ctx) == pytest.approx(
+        100 * unexplained)
 
 
 @pytest.mark.parametrize("name", ["serial_pass_idle_ms",
