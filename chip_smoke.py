@@ -129,6 +129,16 @@ Phases (each prints lines; the last line is the JSON result):
      clean pass (CUDA events; the copy flushes L2), its device time from a
      profiler trace, the host pass on the same input, and the bytes bound
      of the lanes the launch applied; the kernels line's ``SP`` entry
+  6c. the path walk kernel (PW) at the benchmark's size: a Graph500
+     SCALE 18 state at capacity 266,240, one fused collect of Q = 64 pairs
+     (sources of degree >= 1, as phase 3's), the launch against its plain
+     version (``path_walk_ref``) bit for bit and the session's paths
+     against the host walk the port made before (``parent_walk``: the
+     whole forest home, ``extract_path`` and a key gather over V a pair);
+     then the launch alone (CUDA events, L2 flushed, ``SP_REPS``), its
+     device time from a profiler trace, the session's materialization on
+     the host clock, the host walk and the plain version on host tensors,
+     and the bytes bound of the paths; the kernels line's ``PW`` entry
   7. the reachability index at full size on the phase-3 state:
      ``build_index`` on the 1,024 highest-degree alive slots, computed here
      and passed as ``landmark_slots`` (``pick_landmarks`` follows the JAX
@@ -4874,6 +4884,134 @@ def phase_serial_pass(torch, rng, main_launches: int) -> dict:
     return out
 
 
+def pw_bound(block, q: int):
+    """(bound ms, bytes) of one path walk launch from the paths it found:
+    a row's flag, endpoint slots and header (17 bytes), and for each slot
+    on a path its parent, its key and the key's store (12 bytes). A hop's
+    address is the previous hop's value, so latency rules long before
+    this."""
+    nbytes = 17 * q + 12 * int(block[:, 1].sum())
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def parent_walk(cur, vkey):
+    """GetPath's materialization as the port made it before the walk moved
+    to the card: ``parent``, the flags, the endpoint slots and ``vkey`` to
+    the host, then ``extract_path`` and a key gather over V a pair."""
+    from repro_torch.core.bfs import extract_path
+
+    parent, found, src, dst, keys = (t.cpu().numpy() for t in (
+        cur.parent, cur.found, cur.src_slot, cur.dst_slot, vkey))
+    v = parent.shape[1]
+    out = []
+    for qi in range(parent.shape[0]):
+        if not found[qi]:
+            out.append((False, []))
+            continue
+        n, slots = extract_path(parent[qi], int(src[qi]), int(dst[qi]))
+        got = np.where(slots >= 0, keys[np.clip(slots, 0, v - 1)], -1)
+        out.append((True, [int(x) for x in got[:n]]))
+    return out
+
+
+def phase_path_walk(torch, rng, main_launches: int) -> dict:
+    """Phase 6c (module docstring): the kernels line's PW entry."""
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.core.snapshot import _materialize_batch, collect_batch
+    from repro_torch.kernels.path_walk import ops as pw_ops
+    from repro_torch.kernels.path_walk.ref import CAP, path_walk_ref
+
+    t0 = time.perf_counter()
+    n = 1 << SP_SCALE
+    arrays, _ = graph500_state_arrays(SP_SCALE, SP_CAPACITY, rng)
+    st = state_from_numpy(*arrays, device=DEVICE)
+    deg_src = np.flatnonzero(arrays[3][:n] > 0)
+    del arrays
+    v = st.capacity
+    pairs = list(zip(rng.choice(deg_src, QUERIES).tolist(),
+                     rng.integers(0, n, QUERIES).tolist()))
+    cur = collect_batch(st, [a for a, _ in pairs], [b for _, b in pairs])
+    sync(torch)
+    log(f"path walk at the benchmark's size: Graph500 SCALE {SP_SCALE}, "
+        f"capacity {v}, Q = {QUERIES}, forest built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    args = (cur.parent, cur.found, cur.src_slot, cur.dst_slot, st.vkey)
+    host_args = [t.cpu() for t in args]
+
+    before = pw_ops.launches
+    got = pw_ops.path_walk(*args)
+    sync(torch)
+    if pw_ops.launches - before != 1:
+        raise AssertionError(f"{pw_ops.launches - before} path walk "
+                             f"launches for one walk")
+    block = got.cpu().numpy()
+    want = path_walk_ref(*host_args).numpy()
+    if not np.array_equal(block, want):
+        raise AssertionError("the path walk kernel != its plain version at "
+                             f"V = {v}, Q = {QUERIES}")
+    walked = _materialize_batch(st, cur, pairs)
+    old = parent_walk(cur, st.vkey)
+    if walked != old:
+        raise AssertionError("the session's paths != the host walk's")
+    found = int(block[:, 0].sum())
+    hops = int(block[:, 1].max())
+    log(f"path walk == its plain version == the host walk at V = {v}: "
+        f"{found} of {QUERIES} pairs found, longest {hops} slots")
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    ms = []
+    for _ in range(SP_REPS):
+        flush.zero_()
+        sync(torch)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        pw_ops.path_walk(*args)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    _, path = profiled(torch, lambda: pw_ops.path_walk(*args), "path_walk")
+    _, per_name = _busy_ms(path)
+    dev = [t for k, t in per_name.items() if "walk_paths" in k]
+
+    def wall(fn, reps):
+        out = []
+        for _ in range(reps):
+            sync(torch)
+            t1 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    session = wall(lambda: _materialize_batch(st, cur, pairs), SP_REPS)
+    host = wall(lambda: parent_walk(cur, st.vkey), 2)
+    plain = wall(lambda: path_walk_ref(*host_args), 2)
+    bound_ms, nbytes = pw_bound(block, QUERIES)
+    out = {"name": "path_walk", "route": "cuda",
+           "source": "src/repro_torch/kernels/path_walk/kernel.cu",
+           "replaces": None, "launches": main_launches, "max_abs_err": 0,
+           "ms": statistics.median(ms), "ms_all": ms,
+           "device_ms": sum(dev) if dev else None,
+           "session_ms": statistics.median(session),
+           "session_ms_all": session,
+           "host_walk_ms": statistics.median(host),
+           "plain_ms": statistics.median(plain), "bound_ms": bound_ms,
+           "bound_by": "bytes", "library_ms": None, "found": found,
+           "hops": hops, "shape": [QUERIES, v, CAP]}
+    log(f"path_walk (PW): Q = {QUERIES}, V = {v}, cap {CAP}, {found} paths, "
+        f"longest {hops}: kernel {out['ms']:.4f} ms/launch median of "
+        f"{SP_REPS} (CUDA events, L2 flushed; {min(ms):.4f}-{max(ms):.4f}), "
+        "device " + (f"{out['device_ms']:.4f} ms" if dev else "not measured")
+        + f"; the session's materialization {out['session_ms']:.3f} ms "
+        f"(launch, copy home, lists; host clock), the host walk it replaced "
+        f"{out['host_walk_ms']:.1f} ms, the plain version on host tensors "
+        f"{out['plain_ms']:.3f} ms, bound {bound_ms:.6f} ms ({nbytes} B); "
+        f"library_ms null: no PyTorch call follows a chain of parents")
+    del st, cur, args, got, flush
+    torch.cuda.empty_cache()
+    return out
+
+
 B8_WIDE_Q = 16384     # B8's wide shape: pairs of the index's live slots
 
 
@@ -5268,11 +5406,13 @@ def main(argv=None) -> int:
     phase_single_push(torch, np.random.default_rng([args.seed, 5]))
     phase_hybrid(torch, rng)
     phase_closure(torch, index_rng)
+    from repro_torch.kernels.path_walk import ops as pw_ops
     from repro_torch.kernels.serial_pass import ops as sp_ops
-    sp_before = sp_ops.launches
+    sp_before, pw_before = sp_ops.launches, pw_ops.launches
     st, launches, single, pairs, rounds_batches, deg_src = phase_main(
         torch, rng, ROUNDS)
     sp_main = sp_ops.launches - sp_before
+    pw_main = pw_ops.launches - pw_before
     batch = rounds_batches[0]
     dlaunches, dpairs = phase_dense(torch, st, deg_src, dense_rng)
     phase_profile(torch, main_path_work(st, pairs, batch))
@@ -5294,6 +5434,8 @@ def main(argv=None) -> int:
                                  dense_rng)
     kernels.append(phase_serial_pass(
         torch, np.random.default_rng([args.seed, 14]), sp_main))
+    kernels.append(phase_path_walk(
+        torch, np.random.default_rng([args.seed, 15]), pw_main))
     dur_launches = phase_durable(torch, st, deg_src,
                                  np.random.default_rng([args.seed, 7]), card,
                                  undurable)
@@ -5318,8 +5460,10 @@ def main(argv=None) -> int:
         k["lm_family_launches"] = fam_launches[key]
         k["lm_train_launches"] = train_launches[key]
         k["mesh_launches"] = mesh_launches[key]
-    # the serial pass's launches in every phase, the main path's included
-    kernels[-1]["script_launches"] = sp_ops.launches - sp_before
+    # the serial pass's and the path walk's launches in every phase, the
+    # main path's included
+    kernels[-2]["script_launches"] = sp_ops.launches - sp_before
+    kernels[-1]["script_launches"] = pw_ops.launches - pw_before
     log(f"card: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -18,8 +18,9 @@ Surfaces:
   * ``interleaved_getpath``: mutation batches interleaved with a pending
     query, one collect per round (a host loop where JAX uses ``lax.scan``)
 
-Paths are walked on the host: a session copies ``parent`` and ``found`` to
-the host once, not one sync per path step.
+Paths are walked where the forest lies (``kernels/path_walk``: one launch
+on the card, the plain walk on the host otherwise), and a session copies
+home only the found flags, the lengths and the path keys.
 
 Every surface also takes a mesh-partitioned ``core.partition.
 ShardedGraphState`` (DESIGN.md §8): the traversal is then the sharded
@@ -37,9 +38,11 @@ import torch
 
 from repro_torch.core import ops as gops
 from repro_torch.core import partition
-from repro_torch.core.bfs import bfs, extract_path, multi_bfs
+from repro_torch.core.bfs import bfs, multi_bfs
 from repro_torch.core.graph import (GraphState, OpBatch, find_slot,
                                     find_slots, version_vector)
+from repro_torch.kernels.path_walk import ops as pw_ops
+from repro_torch.kernels.path_walk.ref import CAP as PATH_CAP
 from repro_torch.obs import trace as _trace
 
 
@@ -122,27 +125,16 @@ def compare_collects(a: Collect, b: Collect) -> torch.Tensor:
 compare_collect_batches = compare_collects
 
 
-def _path(parent_np, found: bool, src: int, dst: int, vkey_np):
-    """(length, keys int32[V] numpy) of one materialized path."""
-    v = parent_np.shape[0]
-    if not found:
-        return 0, np.full((v,), -1, np.int32)
-    n, slots = extract_path(parent_np, src, dst)
-    keys = np.where(slots >= 0, vkey_np[np.clip(slots, 0, v - 1)], -1)
-    return n, keys.astype(np.int32)
-
-
 def _materialize(state: GraphState, c: Collect, rounds,
                  starved=False) -> PathResult:
+    """The PathResult of one collect, on the state's device: one walk
+    whose row holds the whole path (a cap of V keys)."""
     dev = state.device
-    # repro-torch-lint: allow(trace-purity) — GetPath materializes its path on the host
-    found = bool(c.found)
-    n, keys = _path(c.parent.cpu().numpy(), found, int(c.src_slot),  # repro-torch-lint: allow(trace-purity) — parent[V] to the host once
-                    int(c.dst_slot), state.vkey.cpu().numpy())  # repro-torch-lint: allow(trace-purity) — the slot keys to the host once
+    row = pw_ops.path_walk(c.parent[None], c.found.reshape(1),
+                           c.src_slot.reshape(1), c.dst_slot.reshape(1),
+                           state.vkey, cap=state.capacity)[0]
     return PathResult(
-        torch.tensor(found, device=dev),
-        torch.tensor(n, dtype=torch.int32, device=dev),
-        torch.from_numpy(keys).to(dev),
+        row[0] != 0, row[1], row[2:],
         torch.tensor(int(rounds), dtype=torch.int32, device=dev),
         torch.tensor(bool(starved), device=dev))  # repro-torch-lint: allow(trace-purity) — a host flag
 
@@ -188,20 +180,29 @@ def collect_batch(state, ks, ls, backend: str | None = None,
     return _finish(state, r.found, r.parent, r.expanded, sk, sl)
 
 
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as numpy, under a ``session.to_host`` span with its bytes."""
+    with _trace.span("session.to_host", bytes=t.numel() * t.element_size()):
+        return t.cpu().numpy()
+
+
 def _materialize_batch(state, cur: Collect, pairs):
-    """(found, keys) per pair, from ONE host copy of the batch."""
+    """(found, keys) per pair: every path walked where the forest lies,
+    then one copy home of the flags, the lengths and the first PATH_CAP
+    keys a pair (V, where fewer), and, where a path is longer, one more
+    walk and copy at the longest length."""
     with _trace.span("session.materialize", pairs=len(pairs)):
-        dev = (cur.parent, cur.found, cur.src_slot, cur.dst_slot, state.vkey)
-        with _trace.span("session.to_host", bytes=sum(
-                t.numel() * t.element_size() for t in dev)):
-            parent, found, src, dst, vkey = (t.cpu().numpy() for t in dev)
-        with _trace.span("session.path_walk"):
-            out = []
-            for qi in range(len(pairs)):
-                n, keys = _path(parent[qi], bool(found[qi]), int(src[qi]),
-                                int(dst[qi]), vkey)
-                out.append((bool(found[qi]), [int(x) for x in keys[:n]]))
-            return out
+        args = (cur.parent, cur.found, cur.src_slot, cur.dst_slot,
+                state.vkey)
+        cap = min(PATH_CAP, state.capacity)
+        engine = "device" if cur.parent.is_cuda else "host"
+        with _trace.span("session.path_walk", engine=engine) as walk:
+            block = _to_host(pw_ops.path_walk(*args, cap=cap))
+            hops = int(block[:, 1].max()) if len(block) else 0
+            if hops > cap:
+                block = _to_host(pw_ops.path_walk(*args, cap=hops))
+            walk.set(hops=hops)
+        return [(bool(r[0]), r[2:2 + r[1]].tolist()) for r in block]
 
 
 def _session_stats(stats, *, rounds, starved, resolved, epoch):

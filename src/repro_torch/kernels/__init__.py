@@ -6,6 +6,8 @@
                   supersteps
   edge_update     B5 and B9, the packed and dense lane-ordered edge writes
   label_join      B4 and B8, the packed and dense 2-hop label joins
+  path_walk       no TPU kernel: GetPath's path walk and key gather, which
+                  the JAX package runs as a ``lax.while_loop``
   serial_pass     no TPU kernel: ``apply_ops_fast``'s serial correction
                   pass, which the JAX package runs as a ``lax.fori_loop``
 

@@ -27,7 +27,7 @@ from repro_torch.obs import trace as _trace
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
 PACKAGES = ("bfs_multi_step", "bfs_pull_step", "bfs_step", "edge_update",
-            "label_join", "serial_pass")
+            "label_join", "path_walk", "serial_pass")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

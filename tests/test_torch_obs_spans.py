@@ -17,6 +17,7 @@ import torch
 import repro_torch.core as T
 from repro_torch.core.ops import _lane_conflicts
 from repro_torch.kernels import _build
+from repro_torch.kernels.path_walk.ref import CAP as PATH_CAP
 from repro_torch.obs import trace
 from repro_torch.obs.trace import PORT_SPANS
 from repro_torch.runtime.serve_loop import GraphCoServer
@@ -111,8 +112,10 @@ def test_overflowing_batch_reports_a_replay_of_every_lane_and_the_grow():
 
 def test_traced_get_paths_nests_the_host_copy_with_its_bytes():
     srv = _server()
+    # two pairs with a path (0 -> 1 -> 4, and 3 alone) beside PAIRS' none
+    pairs = PAIRS + [(0, 4), (3, 3)]
     with trace.capture() as rec:
-        answers, rounds = srv.get_paths(PAIRS)
+        answers, rounds = srv.get_paths(pairs)
     ev = rec.events()
     (root,) = _spans(ev, "session.get_paths")
     (mat,) = _spans(ev, "session.materialize")
@@ -120,12 +123,16 @@ def test_traced_get_paths_nests_the_host_copy_with_its_bytes():
     (walk,) = _spans(ev, "session.path_walk")
     compares = _spans(ev, "session.compare")
     assert _inside(mat, root) and _inside(host, mat) and _inside(walk, mat)
+    assert _inside(host, walk)
     assert len(compares) == rounds - 1
     assert all(_inside(c, root) for c in compares)
-    q, v = len(PAIRS), srv.state.capacity
-    # parent int32[Q, V]; found bool[Q]; both endpoint slots int32[Q];
-    # the slot keys int32[V]
-    assert host["args"] == {"bytes": q * v * 4 + q + 2 * 4 * q + 4 * v}
+    q, v = len(pairs), srv.state.capacity
+    # the walk's block int32[Q, 2 + cap]: a pair's found flag, its path's
+    # length and its first cap keys, cap = min(PATH_CAP, V); no parent,
+    # no slot keys
+    assert host["args"] == {"bytes": q * (2 + min(PATH_CAP, v)) * 4}
+    assert answers[-2:] == [(True, [0, 1, 4]), (True, [3])]
+    assert walk["args"] == {"engine": "host", "hops": 3}
     assert mat["args"] == {"pairs": q}
     assert len(answers) == q
 
