@@ -41,6 +41,7 @@ with no counterpart here.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -57,6 +58,7 @@ from repro_torch.core.graph import (
     traversable,
     unpack_dense,
 )
+from repro_torch.obs import trace as _trace
 from repro_torch.parallel import collectives
 
 AXIS = "rows"
@@ -423,25 +425,26 @@ def dcompare(mesh: GraphMesh, a: DCollect, b: DCollect) -> torch.Tensor:
 
 def dget_path_session(mesh: GraphMesh, fetch_state, k, l,
                       max_rounds: int = 64):
-    """Distributed GetPath: the double-collect loop on the host. Returns
-    (found, length, keys, rounds)."""
-    from repro_torch.core.bfs import extract_path
+    """Distributed GetPath: ``core.snapshot``'s double-collect loop over
+    ``dcollect`` / ``dcompare``, giving up at the budget, and the path
+    walked by ``kernels/path_walk`` on the mesh's device. Returns (found,
+    length, keys, rounds)."""
+    from repro_torch.core import snapshot
+    from repro_torch.kernels.path_walk import ops as pw_ops
 
-    prev = dcollect(mesh, fetch_state(), k, l)
-    rounds = 1
-    while rounds < max_rounds:
-        st = _as_rows(mesh, fetch_state())
-        cur = dcollect(mesh, st, k, l)
-        rounds += 1
-        if bool(dcompare(mesh, prev, cur)):
-            ok = bool(cur.found)
-            if not ok:
-                return False, 0, [], rounds
-            n, slots = extract_path(cur.parent, int(cur.src_slot),
-                                    int(cur.dst_slot))
-            vkey = np.concatenate([t.cpu().numpy() for t in st.vkey])
-            keys = np.where(slots >= 0,
-                            vkey[np.clip(slots, 0, st.capacity - 1)], -1)
-            return True, int(n), [int(x) for x in keys[:n]], rounds
-        prev = cur
-    return False, 0, [], rounds
+    if max_rounds < 2:   # the budget leaves no second collect, as in JAX
+        dcollect(mesh, fetch_state(), k, l)
+        return False, 0, [], 1
+    st, cur, rounds, resolved, _ = snapshot._double_collect(
+        lambda: _as_rows(mesh, fetch_state()),
+        lambda rs: dcollect(mesh, rs, k, l),
+        functools.partial(snapshot._matched,
+                          compare=functools.partial(dcompare, mesh)),
+        max_rounds=max_rounds, on_conflict="retry", span=_trace.null_span)
+    if resolved == "budget":
+        return False, 0, [], rounds
+    vkey = collectives.all_gather(list(st.vkey), mesh.device, tiled=True)
+    row = pw_ops.path_walk(cur.parent[None], cur.found.reshape(1),
+                           cur.src_slot.reshape(1), cur.dst_slot.reshape(1),
+                           vkey, cap=st.capacity)[0].tolist()
+    return bool(row[0]), row[1], row[2:2 + row[1]], rounds

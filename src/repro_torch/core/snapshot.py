@@ -18,6 +18,10 @@ Surfaces:
   * ``interleaved_getpath``: mutation batches interleaved with a pending
     query, one collect per round (a host loop where JAX uses ``lax.scan``)
 
+The two sessions and ``core.distributed.dget_path_session`` run one loop,
+``_double_collect``, and every loop decides a round by ``_matched``: the
+round's one host read.
+
 Paths are walked where the forest lies (``kernels/path_walk``: one launch
 on the card, the plain walk on the host otherwise), and a session copies
 home only the found flags, the lengths and the path keys.
@@ -108,18 +112,16 @@ def collect(state: GraphState, k, l, backend: str | None = None) -> Collect:
 
 
 def compare_collects(a: Collect, b: Collect) -> torch.Tensor:
-    """The paper's CompareTree + ComparePath, subsumed by version equality.
-    Works on single collects and on batches alike (all queries must
-    match)."""
-    same_tree = torch.equal(torch.where(a.touched, a.parent, -1),
-                            torch.where(b.touched, b.parent, -1))
-    same = (same_tree and torch.equal(a.touched, b.touched)
-            and torch.equal(a.versions, b.versions)
-            and torch.equal(a.found, b.found)
-            and torch.equal(a.present, b.present)
-            and torch.equal(a.src_slot, b.src_slot)
-            and torch.equal(a.dst_slot, b.dst_slot))
-    return torch.tensor(same)
+    """The paper's CompareTree + ComparePath, subsumed by version equality:
+    a 0-d bool tensor on the collects' device, read by no host. Works on
+    single collects and on batches alike (all queries must match)."""
+    return ((a.found == b.found).all() & (a.present == b.present).all()
+            & (a.touched == b.touched).all()
+            & (a.versions == b.versions).all()
+            & (torch.where(a.touched, a.parent, -1)
+               == torch.where(b.touched, b.parent, -1)).all()
+            & (a.src_slot == b.src_slot).all()
+            & (a.dst_slot == b.dst_slot).all())
 
 
 compare_collect_batches = compare_collects
@@ -205,10 +207,50 @@ def _materialize_batch(state, cur: Collect, pairs):
         return [(bool(r[0]), r[2:2 + r[1]].tolist()) for r in block]
 
 
-def _session_stats(stats, *, rounds, starved, resolved, epoch):
-    if stats is not None:
-        stats.update(rounds=rounds, starved=starved, resolved=resolved,
-                     epoch=epoch)
+def _matched(prev, cur, compare=compare_collects) -> bool:
+    """Whether two consecutive collects match: the one host read of a
+    round. A capacity grow between them changes every row's shape, so it is
+    an effective mutation by definition, never a match (comparing would be
+    a shape error, not a False)."""
+    # repro-torch-lint: allow(trace-purity) — the double collect decides when to stop: one scalar a round
+    return prev.parent.shape == cur.parent.shape and bool(compare(prev, cur))
+
+
+def _double_collect(fetch_state, collect_once, matched, *, max_rounds,
+                    on_conflict, span, fetch_epoch=None):
+    """The double-collect loop of every GetPath surface: collect, then
+    collect again until two in a row match. ``max_rounds`` bounds the
+    collects (None: the paper's unbounded loop); at the budget "retry"
+    gives up and "epoch" makes one collect over ``fetch_epoch()``'s pinned
+    ``(epoch, state)`` (``fetch_state()`` when None). ``span`` opens the
+    ``collect.round`` / ``session.compare`` spans (``_trace.null_span``
+    for a surface that records none). Returns (state, last collect,
+    rounds, resolved, epoch) with resolved "match", "epoch" or "budget".
+    """
+    if on_conflict not in ("retry", "epoch"):
+        raise ValueError(f"unknown on_conflict mode {on_conflict!r}")
+    state = fetch_state()
+    with span("collect.round", round=1):
+        prev = collect_once(state)
+    rounds = 1
+    while True:
+        state = fetch_state()
+        with span("collect.round", round=rounds + 1):
+            cur = collect_once(state)
+        rounds += 1
+        with span("session.compare"):
+            same = matched(prev, cur)
+        if same:
+            return state, cur, rounds, "match", None
+        prev = cur
+        if max_rounds is not None and rounds >= max_rounds:
+            if on_conflict == "retry":
+                return state, cur, rounds, "budget", None
+            epoch, state = (fetch_epoch() if fetch_epoch is not None
+                            else (None, fetch_state()))
+            with span("collect.round", round=rounds + 1, pinned=True):
+                cur = collect_once(state)
+            return state, cur, rounds + 1, "epoch", epoch
 
 
 def get_paths_session(fetch_state, pairs, *, max_rounds: int | None = 16,
@@ -224,8 +266,6 @@ def get_paths_session(fetch_state, pairs, *, max_rounds: int | None = 16,
     ``fetch_epoch()``'s pinned ``(epoch, state)`` (``fetch_state()`` when
     None). ``stats`` receives {"rounds", "starved", "resolved", "epoch"}.
     """
-    if on_conflict not in ("retry", "epoch"):
-        raise ValueError(f"unknown on_conflict mode {on_conflict!r}")
     ks = [p[0] for p in pairs]
     ls = [p[1] for p in pairs]
 
@@ -235,41 +275,17 @@ def get_paths_session(fetch_state, pairs, *, max_rounds: int | None = 16,
 
     with _trace.span("session.get_paths", pairs=len(pairs),
                      on_conflict=on_conflict) as sp:
-        state = fetch_state()
-        with _trace.span("collect.round", round=1):
-            prev = one(state)
-        rounds = 1
-        while True:
-            state = fetch_state()
-            with _trace.span("collect.round", round=rounds + 1):
-                cur = one(state)
-            rounds += 1
-            with _trace.span("session.compare"):
-                # a capacity grow between collects is an effective mutation
-                same = (prev.versions.shape == cur.versions.shape
-                        and bool(compare_collect_batches(prev, cur)))
-            if same:
-                _session_stats(stats, rounds=rounds, starved=False,
-                               resolved="match", epoch=None)
-                sp.set(rounds=rounds, resolved="match")
-                return _materialize_batch(state, cur, pairs), rounds
-            prev = cur
-            if max_rounds is not None and rounds >= max_rounds:
-                if on_conflict == "epoch":
-                    epoch, state = (fetch_epoch() if fetch_epoch is not None
-                                    else (None, fetch_state()))
-                    with _trace.span("collect.round", round=rounds + 1,
-                                     pinned=True):
-                        cur = one(state)
-                    rounds += 1
-                    _session_stats(stats, rounds=rounds, starved=True,
-                                   resolved="epoch", epoch=epoch)
-                    sp.set(rounds=rounds, resolved="epoch")
-                    return _materialize_batch(state, cur, pairs), rounds
-                _session_stats(stats, rounds=rounds, starved=True,
-                               resolved="budget", epoch=None)
-                sp.set(rounds=rounds, resolved="budget")
-                return [(False, []) for _ in pairs], rounds
+        state, cur, rounds, resolved, epoch = _double_collect(
+            fetch_state, one, _matched, max_rounds=max_rounds,
+            on_conflict=on_conflict, span=_trace.span,
+            fetch_epoch=fetch_epoch)
+        if stats is not None:
+            stats.update(rounds=rounds, starved=resolved != "match",
+                         resolved=resolved, epoch=epoch)
+        sp.set(rounds=rounds, resolved=resolved)
+        if resolved == "budget":
+            return [(False, []) for _ in pairs], rounds
+        return _materialize_batch(state, cur, pairs), rounds
 
 
 def get_path_session(
@@ -287,34 +303,14 @@ def get_path_session(
     Terminates at the first pair of consecutive collects with no effective
     mutation between them; at the ``max_rounds`` budget, "retry" returns
     found=False with ``starved``, "epoch" answers from one pinned
-    ``fetch_epoch()`` state with ``starved``."""
-    if on_conflict not in ("retry", "epoch"):
-        raise ValueError(f"unknown on_conflict mode {on_conflict!r}")
-    state = fetch_state()
-    prev = collect(state, k, l, backend=backend)
-    rounds = 1
-    while True:
-        state = fetch_state()
-        cur = collect(state, k, l, backend=backend)
-        rounds += 1
-        if (prev.versions.shape == cur.versions.shape
-                and bool(compare_collects(prev, cur))):
-            return _materialize(state, cur, rounds)
-        prev = cur
-        if max_rounds is not None and rounds >= max_rounds:
-            if on_conflict == "epoch":
-                state = (fetch_epoch()[1] if fetch_epoch is not None
-                         else fetch_state())
-                cur = collect(state, k, l, backend=backend)
-                return _materialize(state, cur, rounds + 1, starved=True)
-            dev = state.device
-            return PathResult(
-                torch.tensor(False, device=dev),
-                torch.tensor(0, dtype=torch.int32, device=dev),
-                torch.full((state.capacity,), -1, dtype=torch.int32,
-                           device=dev),
-                torch.tensor(rounds, dtype=torch.int32, device=dev),
-                torch.tensor(True, device=dev))
+    ``fetch_epoch()`` state with ``starved``. Records no span."""
+    state, cur, rounds, resolved, _ = _double_collect(
+        fetch_state, lambda st: collect(st, k, l, backend=backend), _matched,
+        max_rounds=max_rounds, on_conflict=on_conflict,
+        fetch_epoch=fetch_epoch, span=_trace.null_span)
+    if resolved == "budget":   # given up: a collect's answer with no path
+        cur = cur._replace(found=torch.zeros_like(cur.found))
+    return _materialize(state, cur, rounds, starved=resolved != "match")
 
 
 # ----------------------------------------------------------------------------
@@ -336,8 +332,7 @@ def interleaved_getpath(state: GraphState, batches: OpBatch, k, l,
         if done_round >= 0:
             continue  # answered: the remaining rounds only mutate
         cur = collect(state, k, l, backend=backend)
-        # repro-torch-lint: allow(trace-purity) — the double collect decides when to stop: one scalar a round
-        if bool(compare_collects(prev, cur)):
+        if _matched(prev, cur):
             ans, done_round = cur, t + 1
         prev = cur
     done = done_round >= 0

@@ -8,7 +8,8 @@ package's (repro.core.distributed, repro.parallel), bit for bit
   * ``shard_graph`` round trip; ``dbfs`` on 8 CPU row blocks against JAX's
     on its ambient 1-device mesh (a BFS does not depend on S), parents
     across shards included; ``dcollect`` / ``dcompare`` (the paper's
-    adversary caught) and ``dget_path_session`` with a mutating fetch;
+    adversary caught) and ``dget_path_session`` with a mutating fetch
+    and at its budget's edges;
   * ``dapply_ops`` on one block against JAX's on one device (every field;
     the engine's slot placement depends on S), and on 8 blocks against the
     sequential oracle's result codes and graph;
@@ -121,6 +122,15 @@ def test_dbfs_and_double_collect_match_jax():
 
     got = TD.dget_path_session(_mesh(), fetch, 0, 54)
     assert got == (True, 7, [0, 9, 18, 27, 36, 45, 54], 3)
+    # JAX's budget edges: the adversary's collects at max_rounds=2 give up,
+    # max_rounds=1 makes no second collect; a dead source matches unfound
+    states = iter([ts, t2])
+    assert TD.dget_path_session(_mesh(), lambda: next(states), 0, 54,
+                                max_rounds=2) == (False, 0, [], 2)
+    assert TD.dget_path_session(_mesh(), lambda: ts, 0, 54,
+                                max_rounds=1) == (False, 0, [], 1)
+    assert TD.dget_path_session(_mesh(), lambda: ts, 12, 3) == \
+        (False, 0, [], 2)
     with pytest.raises(TypeError):
         TD.dbfs(_mesh(), object(), 0, 1)
 

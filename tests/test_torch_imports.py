@@ -1,7 +1,8 @@
 """The port stands alone: ``repro_torch``, the ``examples/*_torch.py`` and
 ``chip_smoke.py`` import nothing of JAX and nothing of the JAX package
 ``repro``, importing the port starts no process group, and the entry
-points place state on the card unless the caller names another device."""
+points place state on the card unless the caller names another device.
+Every test process runs one torch thread (the root ``conftest.py``)."""
 import ast
 import os
 import subprocess
@@ -104,3 +105,9 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError):
         T.make_op_batch([(T.OP_ADD_V, 1)])
     assert T.make_graph(64, device="cpu").vkey.device.type == "cpu"
+
+
+def test_each_test_process_runs_one_torch_thread():
+    """Six workers at torch's default of a thread a core oversubscribe the
+    cores, and the CPU tests' small ops spin against each other."""
+    assert torch.get_num_threads() == 1

@@ -2,8 +2,9 @@
 JAX package's: ``examples/quickstart.py`` replayed line for line on both
 (the same printed values, the §3.5 adversary caught, the same session round
 counts), Collects field by field, ``collect_batch`` (fused and vmap),
-``get_paths_session`` / ``get_path_session`` in both ``on_conflict`` modes
-(and on the port's "dense_cuda" against JAX "pallas"), and
+``get_paths_session`` / ``get_path_session`` in both ``on_conflict`` modes,
+each way their loop resolves (match, epoch, budget), and on the port's
+"dense_cuda" against JAX "pallas", and
 ``interleaved_getpath`` (tolerance 0 throughout)."""
 import jax.numpy as jnp
 import numpy as np
@@ -133,10 +134,10 @@ BATCHES = [[(J.OP_ADD_E, 0, 60)], [(J.OP_REM_E, 0, 60)], [(J.OP_ADD_E, 3, 9)],
            [(J.OP_REM_V, 9)]]
 
 
-@pytest.mark.parametrize("max_rounds,on_conflict", [(16, "retry"),
-                                                    (3, "retry"),
-                                                    (3, "epoch")])
-def test_sessions_match_jax(max_rounds, on_conflict):
+@pytest.mark.parametrize("max_rounds,on_conflict,resolved", [
+    (16, "retry", "match"), (None, "retry", "match"), (3, "retry", "budget"),
+    (2, "retry", "budget"), (3, "epoch", "epoch")])
+def test_sessions_match_jax(max_rounds, on_conflict, resolved):
     g, t = _graph()
     kw = dict(max_rounds=max_rounds, on_conflict=on_conflict)
     js, ts = {}, {}
@@ -146,7 +147,7 @@ def test_sessions_match_jax(max_rounds, on_conflict):
         got = T.get_paths_session(_mutating_fetch(T, t, BATCHES, device="cpu"),
                                   PAIRS, stats=ts, **kw)
     assert got == want
-    assert ts == js
+    assert ts == js and ts["resolved"] == resolved
     names = {e["name"] for e in rec.events()}
     assert {"session.get_paths", "collect.round", "bfs.session",
             "bfs.superstep"} <= names
@@ -157,6 +158,9 @@ def test_sessions_match_jax(max_rounds, on_conflict):
         for f, a, b in zip(jp._fields, jp, tp):
             np.testing.assert_array_equal(b.numpy(), np.asarray(a),
                                           err_msg=f"{k}->{l}: {f}")
+        if (k, l) == PAIRS[1]:   # alone, it resolves as the batch does
+            assert (int(tp.rounds), bool(tp.starved)) == (
+                ts["rounds"], resolved != "match")
 
 
 def test_sessions_on_dense_cuda_match_jax_pallas():
