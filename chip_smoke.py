@@ -139,6 +139,17 @@ Phases (each prints lines; the last line is the JSON result):
      device time from a profiler trace, the session's materialization on
      the host clock, the host walk and the plain version on host tensors,
      and the bytes bound of the paths; the kernels line's ``PW`` entry
+  6d. a bare server's batch applied in place (``apply_ops_fast_``) beside
+     the same batch applied to a copy (``apply_ops_fast``): a Graph500
+     SCALE 18 state at capacity 266,240, one update-mix batch of
+     ``LANES`` from the phase's seed; the two held against each other bit
+     for bit (codes and six arrays), the in-place call's ``ops.apply``
+     span (``in_place`` true, no ``ops.copy``); then both timed in turns,
+     ``SP_REPS`` each (CUDA events and the host clock; the in-place one on
+     a fresh copy of the state), each one's rise of
+     ``max_memory_allocated`` over what was held, and each one's device
+     launches (kernels, copies, fills) and device time from a profiler
+     trace; one log line, ``inplace_apply``
   7. the reachability index at full size on the phase-3 state:
      ``build_index`` on the 1,024 highest-degree alive slots, computed here
      and passed as ``landmark_slots`` (``pick_landmarks`` follows the JAX
@@ -4398,23 +4409,29 @@ PROFILE_MARK = "measured"
 PROFILE_SETTLE_S = 0.005
 
 
-def profiled(torch, fn, name: str):
+def profiled(torch, fn, name: str, prep=None):
     """Trace one call of ``fn`` under torch.profiler, after a warm-up call:
     (wall ms of the traced call, the Chrome trace written to
     build/chip_smoke_traces/``name``.json). A trace can lose the kernel
     records of its first milliseconds, so it opens with ``fn`` called
     until PROFILE_SETTLE_S have passed, and the traced call runs inside a
-    ``record_function`` span that ``device_events`` reads from."""
+    ``record_function`` span that ``device_events`` reads from. ``prep``,
+    where given, runs before every call of ``fn``, outside that span."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    prep = prep or (lambda: None)
+    prep()
     fn()
     sync(torch)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         while time.perf_counter() - t0 < PROFILE_SETTLE_S:
+            prep()
             fn()
             sync(torch)
+        prep()
+        sync(torch)
         with record_function(PROFILE_MARK):
             t0 = time.perf_counter()
             fn()
@@ -5012,6 +5029,117 @@ def phase_path_walk(torch, rng, main_launches: int) -> dict:
     return out
 
 
+def phase_inplace_apply(torch, rng) -> dict:
+    """Phase 6d (module docstring): the ``inplace_apply`` line."""
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.core import apply_ops_fast
+    from repro_torch.core.ops import apply_ops_fast_
+    from repro_torch.obs import trace
+
+    t0 = time.perf_counter()
+    n = 1 << SP_SCALE
+    arrays, _ = graph500_state_arrays(SP_SCALE, SP_CAPACITY, rng)
+    base = state_from_numpy(*arrays, device=DEVICE)
+    del arrays
+    v, w = base.adj_packed.shape
+    mirror = base.adj_packed.numel() * base.adj_packed.element_size()
+    batch = update_mix_batch(rng, n, DEVICE, LANES)
+    work = type(base)(*(t.clone() for t in base))
+    sync(torch)
+    log(f"in-place apply at the benchmark's size: Graph500 SCALE {SP_SCALE}"
+        f", capacity {v}, a mirror {mirror / 1e9:.2f} GB, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def restore():
+        for a, b in zip(work, base):
+            a.copy_(b)
+
+    copied, want = apply_ops_fast(base, batch)
+    with trace.capture() as rec:
+        got, res = apply_ops_fast_(work, batch)
+    sync(torch)
+    ev = rec.events()
+    (app,) = [e["args"] for e in ev if e["name"] == "ops.apply"]
+    copies = [e for e in ev if e["name"] == "ops.copy"]
+    if got is not work or not app["in_place"] or copies:
+        raise AssertionError(f"the update-mix batch was not applied in "
+                             f"place: {app}, {len(copies)} copies")
+    for f, x, y in zip(("codes",) + base._fields, (res,) + tuple(got),
+                       (want,) + tuple(copied)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"apply_ops_fast_ != apply_ops_fast at "
+                                 f"capacity {v}: {f}")
+    del copied, got, want, res
+    log(f"apply_ops_fast_ == apply_ops_fast at capacity {v} on one "
+        f"update-mix batch (codes + 6 arrays, B={LANES}, "
+        f"{app['serial_lanes']} serial lanes), in place, no copy")
+
+    def in_place():
+        apply_ops_fast_(work, batch)
+
+    def to_copy():
+        apply_ops_fast(base, batch)
+
+    def rise(fn):
+        sync(torch)
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        fn()
+        sync(torch)
+        return torch.cuda.max_memory_allocated() - held
+
+    def timed(fn):
+        sync(torch)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t1 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end), (time.perf_counter() - t1) * 1e3
+
+    restore()
+    rises = {"in_place": rise(in_place), "copy": rise(to_copy)}
+    ms = {"in_place": [], "copy": []}
+    wall = {"in_place": [], "copy": []}
+    for _ in range(SP_REPS):
+        for key, fn in (("in_place", in_place), ("copy", to_copy)):
+            if key == "in_place":
+                restore()
+            e, h = timed(fn)
+            ms[key].append(e)
+            wall[key].append(h)
+    traces = {"in_place": profiled(torch, in_place, "inplace_apply",
+                                   prep=restore)[1],
+              "copy": profiled(torch, to_copy, "copy_apply")[1]}
+    out = {"name": "inplace_apply", "shape": [v, w, LANES],
+           "serial_lanes": app["serial_lanes"], "mirror_bytes": mirror}
+    for key, path in traces.items():
+        events = device_events(path)
+        busy, per_name = _busy_ms(path)
+        out[f"{key}_ms"] = statistics.median(ms[key])
+        out[f"{key}_ms_all"] = ms[key]
+        out[f"{key}_wall_ms"] = statistics.median(wall[key])
+        out[f"{key}_device_ms"] = busy if events else None
+        out[f"{key}_memcpy_ms"] = sum(t for k, t in per_name.items()
+                                      if "Memcpy" in k)
+        out[f"{key}_launches"] = len(events)
+        out[f"{key}_peak_rise_bytes"] = rises[key]
+    log(f"in place: {out['in_place_ms']:.3f} ms (CUDA events, median of "
+        f"{SP_REPS}; host {out['in_place_wall_ms']:.3f}), device "
+        f"{out['in_place_device_ms']} ms, {out['in_place_launches']} "
+        f"launches, +{rises['in_place'] / 1e9:.3f} GB; to a copy: "
+        f"{out['copy_ms']:.3f} ms (host {out['copy_wall_ms']:.3f}), device "
+        f"{out['copy_device_ms']} ms ({out['copy_memcpy_ms']:.3f} ms "
+        f"copies), {out['copy_launches']} launches, "
+        f"+{rises['copy'] / 1e9:.3f} GB")
+    log(json.dumps({"inplace_apply": out}))
+    del work, base, batch
+    torch.cuda.empty_cache()
+    return out
+
+
 B8_WIDE_Q = 16384     # B8's wide shape: pairs of the index's live slots
 
 
@@ -5436,6 +5564,7 @@ def main(argv=None) -> int:
         torch, np.random.default_rng([args.seed, 14]), sp_main))
     kernels.append(phase_path_walk(
         torch, np.random.default_rng([args.seed, 15]), pw_main))
+    phase_inplace_apply(torch, np.random.default_rng([args.seed, 16]))
     dur_launches = phase_durable(torch, st, deg_src,
                                  np.random.default_rng([args.seed, 7]), card,
                                  undurable)

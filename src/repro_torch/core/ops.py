@@ -10,14 +10,22 @@ applied in one call; lane order is the linearization order.
                     pass, the rest in lane order by the serial correction
                     pass; an allocation schedule that would exhaust the free
                     slots sends every lane through the serial pass.
+``apply_ops_fast_`` the same engine writing into its input state (torch's
+                    trailing underscore): the entry of a store that one
+                    owner holds outright (a bare ``GraphCoServer``).
 
-Both are bit-identical to the JAX engines: result codes, slot placement,
+All are bit-identical to the JAX engines: result codes, slot placement,
 ``ecnt``, ``vver`` and both packed mirrors.
 
-The engines are functional (callers keep old states), so each batch copies
-the state ONCE and mutates the copy in place. On a CUDA state the fast
-engine's serial pass is one launch of ``kernels/serial_pass``: the mask,
-the state and the result codes stay on the device. The host pass
+``apply_ops`` and ``apply_ops_fast`` are functional (callers keep old
+states), so each batch copies the state ONCE and mutates the copy in
+place. ``apply_ops_fast_`` skips that copy unless the batch's schedule
+overflows the free slots or a lane names a negative key: those batches can
+answer R_TABLE_FULL, and a caller that grows and replays needs the
+pre-batch state, so they copy and leave the input untouched. On a CUDA
+state the fast engine's serial pass is one launch of
+``kernels/serial_pass``: the mask, the state and the result codes stay on
+the device. The host pass
 (``kernels/serial_pass/ref.py``: ``_SerialPass`` through ``_serial_masked``)
 is ``apply_ops``, the single-op API, the fast engine's pass on CPU states
 and the kernel's plain version.
@@ -104,9 +112,17 @@ def _lane_conflicts(ops: OpBatch) -> torch.Tensor:
     conflict |= opc == OP_REM_V
     is_cas_edge = ((opc == OP_ADD_E) | (opc == OP_REM_E)) & (ops.expect >= 0)
     conflict |= is_cas_edge & (opc == OP_REM_V).any()
-    conflict |= is_vert & (ops.key1 < 0)
-    conflict |= is_edge & ((ops.key1 < 0) | (ops.key2 < 0))
-    return conflict
+    return conflict | _negative_lanes(ops)
+
+
+def _negative_lanes(ops: OpBatch) -> torch.Tensor:
+    """True for lanes naming a negative key: a vertex op's key1, an edge
+    op's key1 or key2."""
+    opc = ops.opcode
+    is_edge = (opc == OP_ADD_E) | (opc == OP_REM_E) | (opc == OP_CON_E)
+    is_vert = (opc == OP_ADD_V) | (opc == OP_REM_V) | (opc == OP_CON_V)
+    return ((is_vert & (ops.key1 < 0))
+            | (is_edge & ((ops.key1 < 0) | (ops.key2 < 0))))
 
 
 def _alive_now(state: GraphState, keys: torch.Tensor) -> torch.Tensor:
@@ -238,18 +254,37 @@ def _apply_clean_vectorized(st: GraphState, ops: OpBatch,
 def apply_ops_fast(state: GraphState, ops: OpBatch):
     """Disjoint-access-parallel batch application, bit-identical to
     ``apply_ops``. Linearization order: all conflict-free lanes first (they
-    commute with every lane), then the conflicting lanes in lane order."""
+    commute with every lane), then the conflicting lanes in lane order.
+    Returns (new state, result codes int32[B]); ``state`` is untouched."""
+    return _apply_fast(state, ops, in_place=False)
+
+
+def apply_ops_fast_(state: GraphState, ops: OpBatch):
+    """``apply_ops_fast`` writing into ``state`` itself, for a caller that
+    holds the store outright. A batch whose allocation schedule overflows
+    the free slots, or with a lane naming a negative key, is applied to a
+    copy as ``apply_ops_fast`` does and leaves ``state`` untouched: only
+    such a batch can answer R_TABLE_FULL. Returns (state, codes); the
+    returned state ``is`` the input exactly when the batch went in place."""
+    return _apply_fast(state, ops, in_place=True)
+
+
+def _apply_fast(state: GraphState, ops: OpBatch, in_place: bool):
     if ops.lanes == 0:
-        return _copy(state), ops.opcode.clone()
+        return (state if in_place else _copy(state)), ops.opcode.clone()
     with _trace.span("ops.apply", lanes=ops.lanes) as sp:
         with _trace.span("ops.schedule"):
             conflict = _lane_conflicts(ops)
             clean = ~conflict & (ops.opcode != OP_NOP)
             wants, slot, overflow = _alloc_schedule(state, ops)
-            # repro-torch-lint: allow(trace-purity) — one read a batch: the overflow flag picks the serial lanes, and they are counted
-            replay, lanes = torch.stack([overflow.long(),
-                                         conflict.sum()]).tolist()
-        st = _copy(state)
+            # repro-torch-lint: allow(trace-purity) — one read a batch: the overflow flag picks the serial lanes, they are counted, and with a negative key it keeps the input
+            replay, lanes, negative = torch.stack([
+                overflow.long(), conflict.sum(),
+                _negative_lanes(ops).any().long()]).tolist()
+        # the schedule and the clean pass read before they write, so the
+        # batch may land in the input unless it can answer R_TABLE_FULL
+        in_place = in_place and not replay and not negative
+        st = state if in_place else _copy(state)
         if replay:
             # capacity exhaustion couples lanes across keys: every lane
             # takes the serial pass
@@ -266,7 +301,7 @@ def apply_ops_fast(state: GraphState, ops: OpBatch):
                          engine="device" if st.vkey.is_cuda else "host"):
             if lanes:
                 serial_pass(*st, *ops, serial, res)
-        sp.set(serial_lanes=lanes, replay=replay > 0)
+        sp.set(serial_lanes=lanes, replay=replay > 0, in_place=in_place)
         return st, res
 
 

@@ -24,6 +24,15 @@ heartbeat path) rebuilds the pool from checkpoint + WAL replay on the
 server's device, carrying the resolved tickets and the index stamp
 forward. Without a WAL it only un-pins, as the JAX server does.
 
+A bare server (no ingest pool, no mesh) owns its store outright and
+applies each batch into it (``core.ops.apply_ops_fast_``) instead of a
+copy. Once it has handed its store out through ``state``, its next batch
+goes to a copy, so a state a caller read stays as it was; a state
+assigned to ``state`` becomes the server's store, which later batches
+write (assign a clone to keep the original). A pool-backed or sharded
+server keeps the functional engines: the pool's epochs are states that no
+later batch writes.
+
 The server creates its state on the card unless ``device`` names another.
 With ``mesh=`` (a ``core.distributed.GraphMesh``) the state is a
 ``ShardedGraphState`` on that mesh (DESIGN.md §8): batches go through
@@ -45,7 +54,7 @@ from repro_torch.core.distributed import GraphMesh
 from repro_torch.core.epochs import EpochEvictedError
 from repro_torch.core.graph import (R_RECOVERING, R_TABLE_FULL, grow,
                                     make_graph, make_op_batch)
-from repro_torch.core.ops import apply_ops_fast
+from repro_torch.core.ops import apply_ops_fast, apply_ops_fast_
 from repro_torch.core.snapshot import (PathResult, get_path_session,
                                        get_paths_session)
 from repro_torch.index import (build_index, index_fresh,
@@ -135,13 +144,18 @@ def _no_ring():
 
 
 class GraphCoServer:
-    """Owns the live graph; publishes functional snapshots to queries.
+    """Owns the live graph and serves queries on it.
 
-    ``auto_grow`` (default on): any R_TABLE_FULL lane doubles the capacity
-    and replays the whole batch on the grown pre-batch state, so ``submit``
-    never surfaces slot exhaustion. ``ingest=True`` attaches the admission
-    pool: ``submit_client`` enqueues per-client batches, ``pump``/``flush``
-    run admission rounds, and ``state`` is the pool's published epoch.
+    A bare server applies each batch into its store, unless it has handed
+    the store out through ``state`` since its last batch: then the batch
+    goes to a copy, which becomes the store. ``auto_grow`` (default on):
+    any R_TABLE_FULL lane doubles the capacity and replays the whole batch
+    on the grown pre-batch state, so ``submit`` never surfaces slot
+    exhaustion (only a batch that could overflow answers R_TABLE_FULL, and
+    the engine applies such a batch to a copy, so the pre-batch state is
+    still there). ``ingest=True`` attaches the admission pool:
+    ``submit_client`` enqueues per-client batches, ``pump``/``flush`` run
+    admission rounds, and ``state`` is the pool's published epoch.
     ``index=True`` keeps a versioned 2-hop reachability index, refreshed by
     ``index_tick``; it is an accelerator, never a consistency dependency.
     """
@@ -184,6 +198,7 @@ class GraphCoServer:
         self.failure_policy = failure_policy
         self._pinned = None            # (epoch, state) while degraded
         self._capacity = int(capacity)   # seats a recovery with no checkpoint
+        self._handed_out = False       # ``state`` returned the live store
         self._wal_dir = wal_dir
         if mesh is not None:
             self._state = partition.shard_state(
@@ -213,10 +228,12 @@ class GraphCoServer:
     def state(self):
         """Latest published state (the pool's double-buffered epoch when
         ingesting); while degraded, the epoch published before the
-        failure."""
-        if self.degraded and self._pinned is not None:
-            return self._pinned[1]
-        return self.pool.snapshot() if self.pool is not None else self._state
+        failure. A bare server's next batch leaves the state returned here
+        as it is."""
+        st = self._published()
+        if st is self._state:
+            self._handed_out = True
+        return st
 
     @state.setter
     def state(self, value):
@@ -225,10 +242,22 @@ class GraphCoServer:
                 "state is pool-owned under multi-tenant ingestion; "
                 "mutate through submit()/submit_client()")
         self._state = value
+        self._handed_out = False
 
-    def _apply(self, state, batch):
+    def _published(self):
+        """``state`` as the server's own calls read it: the store is not
+        handed out."""
+        if self.degraded and self._pinned is not None:
+            return self._pinned[1]
+        return self.pool.snapshot() if self.pool is not None else self._state
+
+    def _apply(self, state, batch, owned: bool):
         if self.mesh is not None:
             return partition.apply_ops_fast(state, batch)
+        # ``submit`` calls this only without a pool: a store that no caller
+        # holds takes the batch in place
+        if owned:
+            return apply_ops_fast_(state, batch)
         return apply_ops_fast(state, batch)
 
     def _grow(self, state, new_capacity: int):
@@ -253,23 +282,27 @@ class GraphCoServer:
                 ticket = self.pool.submit("_direct", ops)
                 self.pool.flush()
                 return np.asarray(ticket.results)
-            base = self.state                # pre-batch snapshot (functional)
+            base = self._state
             with _trace.span("serve.make_batch", lanes=len(ops)):
                 batch = make_op_batch(ops, device=base.device)
-            state, res = self._apply(base, batch)
+            state, res = self._apply(base, batch, not self._handed_out)
             with _trace.span("serve.codes_to_host"):
                 res = res.cpu().numpy()
             while self.auto_grow and (res == R_TABLE_FULL).any():
+                if state is base:
+                    raise RuntimeError(
+                        "a batch applied in place answered R_TABLE_FULL: "
+                        "no pre-batch state is left to replay on")
                 # discard the starved application, grow the PRE-batch state
                 # and replay the whole batch: one clean lane-order
                 # linearization
                 with _trace.span("serve.grow", capacity=2 * state.capacity):
                     base = self._grow(base, 2 * state.capacity)
                     self.grow_events += 1
-                    state, res = self._apply(base, batch)
+                    state, res = self._apply(base, batch, True)
                     with _trace.span("serve.codes_to_host"):
                         res = res.cpu().numpy()
-            self.state = state
+            self._state, self._handed_out = state, False
             return res
 
     # -- multi-tenant admission surface (DESIGN.md §12) ---------------------
@@ -393,9 +426,9 @@ class GraphCoServer:
             # degraded read and starvation), as in JAX
             out, rounds = self.get_paths([(k, l)], max_rounds=max_rounds)
             found, keys = out[0]
-            pad = np.full((self.state.capacity,), -1, np.int32)
+            pad = np.full((self._published().capacity,), -1, np.int32)
             pad[:len(keys)] = keys
-            dev = self.state.device
+            dev = self._published().device
             return PathResult(
                 torch.tensor(found, device=dev),
                 torch.tensor(len(keys), dtype=torch.int32, device=dev),
@@ -404,7 +437,7 @@ class GraphCoServer:
                 torch.tensor(False, device=dev))
         if self.degraded:
             self.degraded_reads += 1
-        pr = get_path_session(lambda: self.state, k, l,
+        pr = get_path_session(self._published, k, l,
                               max_rounds=max_rounds,
                               on_conflict=self.on_conflict,
                               fetch_epoch=self._fetch_epoch())
@@ -421,7 +454,7 @@ class GraphCoServer:
         if self.degraded and self._pinned is not None:
             self.degraded_reads += 1
         st: dict = {}
-        out, rounds = get_paths_session(lambda: self.state, pairs,
+        out, rounds = get_paths_session(self._published, pairs,
                                         max_rounds=max_rounds,
                                         engine=self.query_engine,
                                         on_conflict=self.on_conflict,
@@ -477,9 +510,10 @@ class GraphCoServer:
         if not self.index_enabled:
             return False
         if self.index is None:
-            self.index = build_index(self.state, self.index_landmarks)
-        elif not index_fresh(self.index, self.state):
-            self.index, _ = refresh(self.index, self.state)
+            self.index = build_index(self._published(),
+                                     self.index_landmarks)
+        elif not index_fresh(self.index, self._published()):
+            self.index, _ = refresh(self.index, self._published())
         else:
             return False
         self.index_refreshes += 1
@@ -492,7 +526,7 @@ class GraphCoServer:
         """Batched reachability without paths: index-served when fresh (or
         pinned at a retained epoch), the fused BFS double collect otherwise.
         Returns a ``ReachSessionResult``."""
-        res = reach_session(lambda: self.state,
+        res = reach_session(self._published,
                             self.index if self.index_enabled else None,
                             pairs, engine=self.query_engine,
                             max_rounds=max_rounds,
@@ -518,7 +552,7 @@ class GraphCoServer:
         if self.degraded:
             self.degraded_reads += 1
         counts, from_index = reach_counts_session(
-            lambda: self.state, self.index if self.index_enabled else None,
+            self._published, self.index if self.index_enabled else None,
             keys)
         if self.index_enabled:
             if from_index:

@@ -77,14 +77,16 @@ def test_traced_submit_nests_the_write_path_and_counts_serial_lanes():
     for name in ("serve.make_batch", "serve.codes_to_host"):
         (s,) = _spans(ev, name)
         assert _inside(s, sub) and not _inside(s, app)
-    for name in ("ops.schedule", "ops.copy", "ops.clean_pass"):
+    for name in ("ops.schedule", "ops.clean_pass"):
         (s,) = _spans(ev, name)
         assert _inside(s, app)
+    # a bare server's batch lands in its store: no copy
+    assert not _spans(ev, "ops.copy")
     lanes = T.make_op_batch(BATCH, device="cpu")
     conflicts = int(_lane_conflicts(lanes).sum())
     assert conflicts == 5      # lanes 0, 1 (key 1), 2 (RemV), 3, 4 (key 4)
     assert app["args"] == {"lanes": len(BATCH), "serial_lanes": conflicts,
-                           "replay": False}
+                           "replay": False, "in_place": True}
     assert ser["args"] == {"lanes": conflicts, "engine": "host"}
     assert sub["args"] == {"lanes": len(BATCH), "seq": 3}
     assert len(codes) == len(BATCH)
@@ -98,7 +100,10 @@ def test_overflowing_batch_reports_a_replay_of_every_lane_and_the_grow():
     ev = rec.events()
     applies = sorted(_spans(ev, "ops.apply"), key=lambda e: e["ts"])
     assert applies[0]["args"] == {"lanes": 7, "serial_lanes": 7,
-                                  "replay": True}
+                                  "replay": True, "in_place": False}
+    # the overflowing batch goes to a copy: the pre-batch state is kept
+    assert len([s for s in _spans(ev, "ops.copy")
+                if _inside(s, applies[0])]) == 1
     (grow,) = _spans(ev, "serve.grow")
     assert grow["args"] == {"capacity": 32}
     assert _inside(applies[1], grow) and not _inside(applies[0], grow)
@@ -158,8 +163,10 @@ def test_spans_change_no_answer_and_fence_nothing(monkeypatch):
     # the fences are the collects' and the supersteps' own, none more
     assert len(fences) == (len(_spans(ev, "collect.round"))
                            + len(_spans(ev, "bfs.superstep")))
+    # a bare server whose store no caller read grows, and copies it, only
+    # on a batch that could overflow (the overflow test holds both spans)
     assert {e["name"] for e in ev} >= PORT_SPANS - {"kernel.launch",
-                                                    "serve.grow"}
+                                                    "serve.grow", "ops.copy"}
 
 
 def test_disabled_recorder_holds_no_event():

@@ -303,7 +303,7 @@ def test_cuda_overflowing_batch_is_replayed_in_one_launch(cuda_device, case):
     (app,) = [e for e in ev if e["name"] == "ops.apply"]
     (ser,) = [e for e in ev if e["name"] == "ops.serial_pass"]
     assert app["args"] == {"lanes": batch.lanes, "serial_lanes": batch.lanes,
-                           "replay": True}
+                           "replay": True, "in_place": False}
     assert ser["args"] == {"lanes": batch.lanes, "engine": "device"}
     assert T.R_TABLE_FULL in fast[1].tolist()
 
