@@ -263,53 +263,58 @@ class EpochRing:
     def push(self, epoch: int, state: GraphState) -> None:
         """Record the transition newest -> ``epoch`` (consecutive publishes):
         the changed rows are found on the device, and only their patches
-        and the version vector cross to the host, in one copy."""
-        prev = self._newest_state()
-        if prev is None or state.capacity != prev.capacity:
-            self.reset(epoch, state)
-            return
-        if epoch != self._newest + 1:
-            raise ValueError(
-                f"non-consecutive publish: {self._newest} -> {epoch}")
-        v, w = state.capacity, state.words
-        dev = state.device
-        # row block by row block against the previous state's same rows
-        # (a sharded state is never gathered)
-        changed = torch.zeros((v,), dtype=torch.bool, device=dev)
-        for lo, blk in _row_blocks(state):
-            hi = lo + blk.shape[0]
-            diff = (_rows_of(prev, lo, hi, blk.device) != blk).any(1)
-            changed[lo:hi] = _on(diff, dev)
-        for name in _SCALARS:
-            changed |= getattr(prev, name) != getattr(state, name)
-        rows = torch.nonzero(changed).flatten()
-        k = rows.numel()
-        patch = [(getattr(prev, name)[rows] ^ getattr(state, name)[rows])
-                 .to(torch.int32).flatten() for name in _SCALARS]
-        patch.append((_take_rows(prev, rows) ^ _take_rows(state, rows))
-                     .flatten())
-        host = self._to_host(torch.cat(
-            [torch.stack([state.ecnt, state.vver], -1).flatten(),
-             rows.to(torch.int32)] + patch))
-        ends = np.cumsum([2 * v, k, k, k, k, k])
-        versions, rows_h, vk, va, vv, ec, adj = np.split(host, ends)
-        rec = EpochRecord(
-            epoch=int(epoch), capacity=v,
-            versions=versions.reshape(v, 2).copy(), rows=rows_h.copy(),
-            vkey_xor=vk.copy(), valive_xor=va.astype(np.bool_),
-            vver_xor=vv.copy(), ecnt_xor=ec.copy(),
-            adj_xor=adj.reshape(k, w).view(np.uint32).copy())
-        self._records.append(rec)
-        self._hold(state)
-        self._newest = int(epoch)
-        while len(self._records) > self.retain - 1:
-            self._records.pop(0)
-            self.evicted += 1
+        and the version vector cross to the host, in one copy. Traced as
+        ``ring.push`` (``rows`` changed, ``bytes`` copied to the host; 0
+        and 0 where a capacity change resets the ring)."""
+        with _trace.span("ring.push", epoch=int(epoch)) as sp:
+            prev = self._newest_state()
+            if prev is None or state.capacity != prev.capacity:
+                self.reset(epoch, state)
+                sp.set(rows=0, bytes=0)
+                return
+            if epoch != self._newest + 1:
+                raise ValueError(
+                    f"non-consecutive publish: {self._newest} -> {epoch}")
+            v, w = state.capacity, state.words
+            dev = state.device
+            # row block by row block against the previous state's same rows
+            # (a sharded state is never gathered)
+            changed = torch.zeros((v,), dtype=torch.bool, device=dev)
+            for lo, blk in _row_blocks(state):
+                hi = lo + blk.shape[0]
+                diff = (_rows_of(prev, lo, hi, blk.device) != blk).any(1)
+                changed[lo:hi] = _on(diff, dev)
+            for name in _SCALARS:
+                changed |= getattr(prev, name) != getattr(state, name)
+            rows = torch.nonzero(changed).flatten()
+            k = rows.numel()
+            patch = [(getattr(prev, name)[rows] ^ getattr(state, name)[rows])
+                     .to(torch.int32).flatten() for name in _SCALARS]
+            patch.append((_take_rows(prev, rows) ^ _take_rows(state, rows))
+                         .flatten())
+            host = self._to_host(torch.cat(
+                [torch.stack([state.ecnt, state.vver], -1).flatten(),
+                 rows.to(torch.int32)] + patch))
+            sp.set(rows=k, bytes=host.nbytes)
+            ends = np.cumsum([2 * v, k, k, k, k, k])
+            versions, rows_h, vk, va, vv, ec, adj = np.split(host, ends)
+            rec = EpochRecord(
+                epoch=int(epoch), capacity=v,
+                versions=versions.reshape(v, 2).copy(), rows=rows_h.copy(),
+                vkey_xor=vk.copy(), valive_xor=va.astype(np.bool_),
+                vver_xor=vv.copy(), ecnt_xor=ec.copy(),
+                adj_xor=adj.reshape(k, w).view(np.uint32).copy())
+            self._records.append(rec)
+            self._hold(state)
+            self._newest = int(epoch)
+            while len(self._records) > self.retain - 1:
+                self._records.pop(0)
+                self.evicted += 1
+                if _trace.enabled():
+                    _obs_registry().inc("ring.evictions")
             if _trace.enabled():
-                _obs_registry().inc("ring.evictions")
-        if _trace.enabled():
-            _obs_registry().set("ring.occupancy", len(self._records))
-            _trace.counter("ring.occupancy", len(self._records))
+                _obs_registry().set("ring.occupancy", len(self._records))
+                _trace.counter("ring.occupancy", len(self._records))
 
     # -- read side ----------------------------------------------------------
     def window(self) -> tuple[int, int]:

@@ -19,11 +19,12 @@ read both.
 The port also emits spans the JAX package has no twin for (``PORT_SPANS``,
 DESIGN.md §14 "Port-only spans"): the write path from
 ``GraphCoServer.submit`` down to the serial pass, the host side of a
-GetPath session, and the enqueue of each CUDA kernel. None of them
-fences. Every event's ``ts`` counts microseconds from
-``TraceRecorder.epoch_ns``, a ``time.perf_counter_ns()`` reading that
-``export()`` also writes as ``otherData.perf_counter_epoch_ns``, so a
-span can be laid over a device trace kept on that clock.
+GetPath session, the enqueue of each CUDA kernel, and the ingest pool's
+seat and publish with the epoch ring's push. None of them fences. Every
+event's ``ts`` counts microseconds from ``TraceRecorder.epoch_ns``, a
+``time.perf_counter_ns()`` reading that ``export()`` also writes as
+``otherData.perf_counter_epoch_ns``, so a span can be laid over a device
+trace kept on that clock.
 """
 from __future__ import annotations
 
@@ -43,7 +44,8 @@ PORT_SPANS = frozenset({
     "serve.submit", "serve.make_batch", "serve.codes_to_host", "serve.grow",
     "ops.apply", "ops.schedule", "ops.copy", "ops.clean_pass",
     "ops.serial_pass", "session.materialize", "session.to_host",
-    "session.path_walk", "session.compare", "kernel.launch"})
+    "session.path_walk", "session.compare", "kernel.launch",
+    "ingest.seat", "ingest.publish", "ring.push"})
 
 
 class _NullSpan:

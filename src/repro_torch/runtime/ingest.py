@@ -23,8 +23,19 @@ The admission machinery between many clients and the fused
     wait-free against a pinned epoch, and ``state_at``/``epoch_diff`` serve
     time travel and audit diffs. ``epoch_log`` is pruned to its window.
   * **Linearization log.** The serial order the pool claims (admission
-    order within a round, round order across rounds). Replaying it through
-    the serial engine must give the pool's head bit for bit.
+    order within a round, round order across rounds). Replaying it since
+    the last seat (``last_seat``), through the serial engine on the state
+    seated then, must give the pool's head bit for bit.
+  * **Seats.** ``seat`` publishes a state handed in from outside (a
+    compacted store, a loaded graph) as the next epoch of an idle pool:
+    empty queue, no admission round running. Like a grow it is a
+    retention barrier: the ring restarts at that epoch, earlier epochs
+    answer ``EpochEvictedError``, and ``epoch_log`` restarts at the
+    current linearization prefix. The JAX pool has no seat.
+
+A seat is refused (``SeatRefused``) while work is queued or a round runs,
+under a write-ahead log (the seated state would bypass the log that
+recovery replays) and on a mesh-sharded pool.
 
 Batches holding RemoveVertex (or naming negative keys) are EXCLUSIVE:
 RemoveVertex bumps the ``ecnt`` of every in-edge source, a cross-key effect
@@ -160,6 +171,10 @@ class Ticket:
         return len(self.ops)
 
 
+class SeatRefused(RuntimeError):
+    """``IngestPool.seat`` refused; the message names the reason."""
+
+
 class IngestStats(StatsView):
     """Admission observability, stored under ``ingest.<field>`` in the
     pool's registry (DESIGN.md §12, §14, §16)."""
@@ -246,6 +261,9 @@ class IngestPool:
         self.linearization: list[int] = []   # batch_ids in claimed serial order
         self.tickets: dict[int, Ticket] = {}
         self.epoch_log: dict[int, int] = {0: 0}  # epoch -> linearization prefix
+        # (epoch, linearization prefix) of the last seat: the construction
+        # state is seated at (0, 0)
+        self.last_seat: tuple[int, int] = (0, 0)
         self.ring = EpochRing(retain_epochs)
         self.ring.reset(0, state)
         self._head = state                   # writer-private latest state
@@ -275,20 +293,68 @@ class IngestPool:
     def _publish(self, state) -> int:
         nxt = 1 - self._cur
         epoch = self._slots[self._cur][0] + 1
-        self._slots[nxt] = (epoch, state)
-        self._cur = nxt                      # the one flip readers see
-        self._head = state
-        self.stats.epochs = epoch
-        self.epoch_log[epoch] = len(self.linearization)
-        # record the delta (a capacity change resets the ring) and prune
-        # epoch_log to the addressable window
-        self.ring.push(epoch, state)
-        oldest = self.ring.window()[0]
-        for e in [e for e in self.epoch_log if e < oldest]:
-            del self.epoch_log[e]
-        self.stats.epochs_retained = len(self.ring) + 1
-        self.stats.epochs_evicted = self.ring.evicted
+        with _trace.span("ingest.publish", epoch=epoch):
+            self._slots[nxt] = (epoch, state)
+            self._cur = nxt                  # the one flip readers see
+            self._head = state
+            self.stats.epochs = epoch
+            self.epoch_log[epoch] = len(self.linearization)
+            # record the delta (a capacity change resets the ring) and
+            # prune epoch_log to the addressable window
+            self.ring.push(epoch, state)
+            oldest = self.ring.window()[0]
+            for e in [e for e in self.epoch_log if e < oldest]:
+                del self.epoch_log[e]
+            self.stats.epochs_retained = len(self.ring) + 1
+            self.stats.epochs_evicted = self.ring.evicted
         return epoch
+
+    def seat(self, state) -> int:
+        """Publish ``state``, handed in from outside the pool, as its next
+        epoch; returns that epoch. Only an idle pool takes one: the queue
+        empty and no admission round running. The ring restarts at the
+        new epoch (a fresh ring swapped in whole, so a reader holds the
+        old ring or the new one), ``epoch_log`` keeps that epoch alone,
+        and ``last_seat`` records (epoch, linearization prefix). A reader
+        sees the old epoch or the new one: the slot flip comes last.
+        Raises ``SeatRefused`` without touching the pool otherwise."""
+        if self.wal is not None:
+            raise SeatRefused(
+                "the pool has a write-ahead log: a seated state would "
+                "bypass the log that recovery replays")
+        if self.mesh is not None or isinstance(
+                state, partition.ShardedGraphState):
+            raise SeatRefused("a mesh-sharded pool takes no seat")
+        if not self._admission.acquire(blocking=False):  # repro-torch-lint: allow(lock-order) — a module lock, not an entity lock: refuse while a round runs
+            raise SeatRefused("an admission round is running")
+        try:
+            with self._mutex:
+                if self._queue:
+                    raise SeatRefused(
+                        f"{len(self._queue)} client batch(es) queued")
+                epoch = self._slots[self._cur][0] + 1
+                prefix = len(self.linearization)
+                with _trace.span("ingest.seat", epoch=epoch,
+                                 capacity=int(state.capacity)):
+                    ring = EpochRing(self.ring.retain)
+                    ring.evicted = self.ring.evicted + len(self.ring)
+                    ring.reset(epoch, state)
+                    # the new epoch's prefix is there before the flip, the
+                    # old ones go after it
+                    self.epoch_log[epoch] = prefix
+                    self.ring = ring
+                    self._head = state
+                    nxt = 1 - self._cur
+                    self._slots[nxt] = (epoch, state)
+                    self._cur = nxt          # the one flip readers see
+                    self.epoch_log = {epoch: prefix}
+                    self.last_seat = (epoch, prefix)
+                    self.stats.epochs = epoch
+                    self.stats.epochs_retained = 1
+                    self.stats.epochs_evicted = ring.evicted
+                return epoch
+        finally:
+            self._admission.release()  # repro-torch-lint: allow(lock-order) — a module lock, not an entity lock: the seat's hold on admission
 
     # -- retained-epoch read surface (DESIGN.md §13) ------------------------
     def epoch_window(self) -> tuple[int, int]:

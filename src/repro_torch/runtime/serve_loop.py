@@ -31,7 +31,10 @@ goes to a copy, so a state a caller read stays as it was; a state
 assigned to ``state`` becomes the server's store, which later batches
 write (assign a clone to keep the original). A pool-backed or sharded
 server keeps the functional engines: the pool's epochs are states that no
-later batch writes.
+later batch writes. A state assigned to a pool-backed server's ``state``
+is seated as the pool's next epoch, which restarts its epoch ring; a
+pool with queued or running work, a write-ahead log or a mesh refuses
+(``ingest.SeatRefused``). The JAX server refuses every such assignment.
 
 The server creates its state on the card unless ``device`` names another.
 With ``mesh=`` (a ``core.distributed.GraphMesh``) the state is a
@@ -155,7 +158,9 @@ class GraphCoServer:
     the engine applies such a batch to a copy, so the pre-batch state is
     still there). ``ingest=True`` attaches the admission pool:
     ``submit_client`` enqueues per-client batches, ``pump``/``flush`` run
-    admission rounds, and ``state`` is the pool's published epoch.
+    admission rounds, and ``state`` is the pool's published epoch;
+    assigning ``state`` seats the value into an idle pool as its next
+    epoch (``IngestPool.seat``), where the JAX server refuses.
     ``index=True`` keeps a versioned 2-hop reachability index, refreshed by
     ``index_tick``; it is an accelerator, never a consistency dependency.
     """
@@ -238,9 +243,11 @@ class GraphCoServer:
     @state.setter
     def state(self, value):
         if self.pool is not None:
-            raise AttributeError(
-                "state is pool-owned under multi-tenant ingestion; "
-                "mutate through submit()/submit_client()")
+            # an idle pool publishes the value as its next epoch, which
+            # restarts the ring; busy, durable or sharded, it refuses
+            # (``IngestPool.seat``; DESIGN.md §12)
+            self.pool.seat(value)
+            return
         self._state = value
         self._handed_out = False
 

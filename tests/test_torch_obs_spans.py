@@ -164,9 +164,12 @@ def test_spans_change_no_answer_and_fence_nothing(monkeypatch):
     assert len(fences) == (len(_spans(ev, "collect.round"))
                            + len(_spans(ev, "bfs.superstep")))
     # a bare server whose store no caller read grows, and copies it, only
-    # on a batch that could overflow (the overflow test holds both spans)
-    assert {e["name"] for e in ev} >= PORT_SPANS - {"kernel.launch",
-                                                    "serve.grow", "ops.copy"}
+    # on a batch that could overflow (the overflow test holds both spans);
+    # it has no ingest pool, so no seat, publish or ring push
+    # (tests/test_torch_ingest_seat.py holds those)
+    assert {e["name"] for e in ev} >= PORT_SPANS - {
+        "kernel.launch", "serve.grow", "ops.copy", "ingest.seat",
+        "ingest.publish", "ring.push"}
 
 
 def test_disabled_recorder_holds_no_event():
