@@ -150,6 +150,17 @@ Phases (each prints lines; the last line is the JSON result):
      ``max_memory_allocated`` over what was held, and each one's device
      launches (kernels, copies, fills) and device time from a profiler
      trace; one log line, ``inplace_apply``
+  6e. the epoch ring's push at the benchmark's size: a Graph500 SCALE 18
+     state at capacity 266,240 and the state one fused apply of the
+     ingest cell's clients later (7 x 64 lanes of its mix, padded to
+     512); ``EpochRing.push``'s record (rows, five patches, version
+     vector) held byte for byte against the whole-mirror diff of the two
+     states computed in the phase; then the push timed (CUDA events and
+     the host clock, ``SP_REPS``, a fresh ring each) in turns with that
+     whole-mirror diff, its device launches and time from a profiler
+     trace, and its bytes bound (the four scalars of both states, the
+     allocated slots' in-rows, both states' rows of the record, the
+     version vector, the patch); one log line, ``ring_push``
   7. the reachability index at full size on the phase-3 state:
      ``build_index`` on the 1,024 highest-degree alive slots, computed here
      and passed as ``landmark_slots`` (``pick_landmarks`` follows the JAX
@@ -5029,6 +5040,20 @@ def phase_path_walk(torch, rng, main_launches: int) -> dict:
     return out
 
 
+def events_ms(torch, fn):
+    """(CUDA-event ms, host ms) of one call of ``fn``, from a synchronized
+    start to the end of the device work it queued."""
+    sync(torch)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t1 = time.perf_counter()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), (time.perf_counter() - t1) * 1e3
+
+
 def phase_inplace_apply(torch, rng) -> dict:
     """Phase 6d (module docstring): the ``inplace_apply`` line."""
     from repro_torch.convert import state_from_numpy
@@ -5088,17 +5113,6 @@ def phase_inplace_apply(torch, rng) -> dict:
         sync(torch)
         return torch.cuda.max_memory_allocated() - held
 
-    def timed(fn):
-        sync(torch)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t1 = time.perf_counter()
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end), (time.perf_counter() - t1) * 1e3
-
     restore()
     rises = {"in_place": rise(in_place), "copy": rise(to_copy)}
     ms = {"in_place": [], "copy": []}
@@ -5107,7 +5121,7 @@ def phase_inplace_apply(torch, rng) -> dict:
         for key, fn in (("in_place", in_place), ("copy", to_copy)):
             if key == "in_place":
                 restore()
-            e, h = timed(fn)
+            e, h = events_ms(torch, fn)
             ms[key].append(e)
             wall[key].append(h)
     traces = {"in_place": profiled(torch, in_place, "inplace_apply",
@@ -5136,6 +5150,165 @@ def phase_inplace_apply(torch, rng) -> dict:
         f"+{rises['copy'] / 1e9:.3f} GB")
     log(json.dumps({"inplace_apply": out}))
     del work, base, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+# the ingest cell's round (graphbench/traffic/ingest.json): 7 clients of
+# 64 lanes, {AddV 12.5, ConV 25, AddE 25, RemE 12.5, ConE 25} % of each
+INGEST_CLIENTS = 7
+INGEST_CLIENT_LANES = {"AddV": 8, "ConV": 16, "AddE": 16, "RemE": 8,
+                       "ConE": 16}
+INGEST_PAD = 512              # the pool's power-of-two bucket of 448 lanes
+
+
+def ingest_round_ops(rng, n: int, out_words) -> list:
+    """One fused apply of the ingest cell's clients on a graph of ``n``
+    loaded keys, as (opcode, k1, k2) tuples in client order: AddV on the
+    SP_CHURN keys above ``n``, ConV / ConE uniform over loaded and churn
+    keys, AddE uniform loaded pairs, RemE arcs of ``out_words`` (the
+    packed out mirror as uint32 on the host), as the cell's RemE lanes
+    remove arcs added rounds before."""
+    from repro_torch.core import (OP_ADD_E, OP_ADD_V, OP_CON_E, OP_CON_V,
+                                  OP_REM_E)
+
+    code = {"AddV": OP_ADD_V, "ConV": OP_CON_V, "AddE": OP_ADD_E,
+            "RemE": OP_REM_E, "ConE": OP_CON_E}
+    keys = n + SP_CHURN
+
+    def arc():
+        while True:
+            r = int(rng.integers(0, n))
+            cols = np.flatnonzero(np.unpackbits(
+                out_words[r].view(np.uint8), bitorder="little"))
+            if cols.size:
+                return r, int(rng.choice(cols))
+
+    ops = []
+    for _ in range(INGEST_CLIENTS):
+        lanes = []
+        for op, count in INGEST_CLIENT_LANES.items():
+            for _ in range(count):
+                if op == "AddV":
+                    lanes.append((code[op], n + int(rng.integers(SP_CHURN))))
+                elif op == "ConV":
+                    lanes.append((code[op], int(rng.integers(keys))))
+                elif op == "AddE":
+                    lanes.append((code[op], *map(int, rng.integers(0, n, 2))))
+                elif op == "RemE":
+                    lanes.append((code[op], *arc()))
+                else:
+                    lanes.append((code[op], *map(int,
+                                                 rng.integers(0, keys, 2))))
+        ops += [lanes[i] for i in rng.permutation(len(lanes))]
+    return ops
+
+
+def whole_mirror_record(torch, a, b) -> dict:
+    """The record of a -> b as a whole-mirror compare finds it: the rows of
+    ``changed_rows`` (the whole mirrors compared on the device), with the
+    XOR of each field on those rows, on the host."""
+    rows = changed_rows(a, b)
+    at = torch.from_numpy(rows).to(a.vkey.device).long()
+    out = {"rows": rows}
+    for f in ("vkey", "valive", "vver", "ecnt", "adj_packed"):
+        out[f] = (getattr(a, f)[at] ^ getattr(b, f)[at]).cpu().numpy()
+    return out
+
+
+def phase_ring_push(torch, rng) -> dict:
+    """Phase 6e (module docstring): the ``ring_push`` line."""
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.core import EpochRing, apply_ops_fast, make_op_batch
+    from repro_torch.obs import trace
+
+    t0 = time.perf_counter()
+    n = 1 << SP_SCALE
+    arrays, _ = graph500_state_arrays(SP_SCALE, SP_CAPACITY, rng)
+    ops = ingest_round_ops(rng, n, arrays[4])
+    base = state_from_numpy(*arrays, device=DEVICE)
+    del arrays
+    v, w = base.adj_packed.shape
+    batch = make_op_batch(ops, lanes=INGEST_PAD, device=DEVICE)
+    nxt, _ = apply_ops_fast(base, batch)
+    sync(torch)
+    log(f"ring push at the benchmark's size: Graph500 SCALE {SP_SCALE}, "
+        f"capacity {v}, one fused apply of {len(ops)} ingest lanes padded "
+        f"to {INGEST_PAD}, built in {time.perf_counter() - t0:.1f} s")
+
+    want = whole_mirror_record(torch, base, nxt)
+    ring = EpochRing(2)
+
+    def reset():
+        ring.reset(0, base)
+
+    def push():
+        ring.push(1, nxt)
+
+    reset()
+    with trace.capture() as rec:
+        push()
+    (span,) = [e["args"] for e in rec.events() if e["name"] == "ring.push"]
+    got = ring._records[-1]
+    pairs = (("rows", got.rows), ("vkey", got.vkey_xor),
+             ("valive", got.valive_xor), ("vver", got.vver_xor),
+             ("ecnt", got.ecnt_xor), ("adj_packed", got.adj_xor))
+    for f, x in pairs:
+        y = want[f]
+        if x.shape != y.shape or x.tobytes() != y.tobytes():
+            raise AssertionError(f"ring.push's record != the whole-mirror "
+                                 f"diff at capacity {v}: {f}")
+    versions = torch.stack([nxt.ecnt, nxt.vver], -1).cpu().numpy()
+    if got.versions.tobytes() != versions.tobytes():
+        raise AssertionError("ring.push's version vector != (ecnt, vver)")
+    k = int(got.rows.size)
+    allocated = int(((base.vkey == -1) & (base.vver != nxt.vver)).sum())
+    log(f"ring.push == the whole-mirror diff at capacity {v}: {k} rows, "
+        f"{allocated} slots allocated, {span['bytes']} bytes home")
+
+    # what the push must move on the device: the four scalars of both
+    # states (13 bytes a slot), the allocated slots' in-rows, both states'
+    # rows of the record, the version vector read and written, the patch
+    nbytes = (2 * 13 * v + 4 * w * allocated + 2 * 4 * w * k + 2 * 8 * v
+              + 4 * k * (5 + w))
+
+    def whole_diff():
+        whole_mirror_record(torch, base, nxt)
+
+    ms = {"push": [], "whole_diff": []}
+    wall = {"push": [], "whole_diff": []}
+    for _ in range(SP_REPS):
+        for key, fn in (("push", push), ("whole_diff", whole_diff)):
+            if key == "push":
+                reset()
+            e, h = events_ms(torch, fn)
+            ms[key].append(e)
+            wall[key].append(h)
+    path = profiled(torch, push, "ring_push", prep=reset)[1]
+    events = device_events(path)
+    busy, per_name = _busy_ms(path)
+    out = {"name": "ring_push", "shape": [v, w, INGEST_PAD], "rows": k,
+           "allocated": allocated, "host_bytes": int(span["bytes"]),
+           "bytes": nbytes,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "push_ms": statistics.median(ms["push"]),
+           "push_ms_all": ms["push"],
+           "push_wall_ms": statistics.median(wall["push"]),
+           "push_device_ms": busy if events else None,
+           "push_memcpy_ms": sum(t for key, t in per_name.items()
+                                 if "Memcpy" in key),
+           "push_launches": len(events),
+           "whole_diff_ms": statistics.median(ms["whole_diff"]),
+           "whole_diff_wall_ms": statistics.median(wall["whole_diff"])}
+    log(f"ring.push: {out['push_ms']:.3f} ms (CUDA events, median of "
+        f"{SP_REPS}; host {out['push_wall_ms']:.3f}), device "
+        f"{out['push_device_ms']} ms ({out['push_memcpy_ms']:.3f} ms "
+        f"copies), {out['push_launches']} launches; bound "
+        f"{out['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB); the whole-mirror "
+        f"diff of the same states: {out['whole_diff_ms']:.3f} ms (host "
+        f"{out['whole_diff_wall_ms']:.3f})")
+    log(json.dumps({"ring_push": out}))
+    del ring, base, nxt, batch
     torch.cuda.empty_cache()
     return out
 
@@ -5565,6 +5738,7 @@ def main(argv=None) -> int:
     kernels.append(phase_path_walk(
         torch, np.random.default_rng([args.seed, 15]), pw_main))
     phase_inplace_apply(torch, np.random.default_rng([args.seed, 16]))
+    phase_ring_push(torch, np.random.default_rng([args.seed, 17]))
     dur_launches = phase_durable(torch, st, deg_src,
                                  np.random.default_rng([args.seed, 7]), card,
                                  undurable)

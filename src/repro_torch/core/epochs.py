@@ -18,19 +18,31 @@ The records are host numpy with the JAX package's dtypes and bytes
 ``dump()`` leaves are byte-identical to the JAX ring's. What differs is
 where the work runs, because the states live on the card:
 
-  * **``push`` diffs on the device.** The port's engines are functional (a
-    batch clones its input once), so a published state is never written
-    again and the ring keeps the newest one by reference, on its device,
-    without a copy. ``push`` finds the changed rows there (any scalar field
-    differs, or any word of the ``adj_packed`` row) and copies to the host
-    only their XOR patches and the (ecnt, vver) version vector, in one
-    transfer. Torch tensors are mutable, so the ring stamps each field's
+  * **``push`` finds the changed rows from the version counters.** The
+    port's engines are functional (a batch clones its input once), so a
+    published state is never written again and the ring keeps the newest
+    one by reference, on its device, without a copy. An engine writes an
+    out row only where it moves one of that row's counters (DESIGN.md §2
+    invariants 2-3: every edge write bumps ``ecnt`` of its source, every
+    allocation the slot's ``vver``; RemoveVertex writes no bit), with one
+    exception: AddVertex scrubs the column of the slot it allocates from
+    every row, and that column is empty unless the slot held
+    ``EMPTY_KEY`` (-1) with arcs into it. So ``push`` takes as candidates
+    the rows where vkey, valive, vver or ecnt differ (four [V] compares)
+    and the rows with an arc, in the previous state, into a slot that
+    held ``EMPTY_KEY`` and whose ``vver`` moved (the OR of those slots'
+    in-mirror rows: the §11 transpose), gathers both states' out rows of
+    the candidates alone, and keeps those where a scalar or the row
+    differs. It copies to the host only their XOR patches and the (ecnt,
+    vver) version vector, in one transfer, and never forms a [V, W]
+    compare. Torch tensors are mutable, so the ring stamps each field's
     version counter when it takes a state and raises if a read or a push
     finds the newest state written in place since: the records XOR against
-    it, and such a write would change every retained epoch. The JAX ring copies all five fields of every published state
-    to the host and diffs them whole: at V = 69,632 that is 69,632 x 2,176
-    x 4 B = 606 MB of ``adj_packed`` per publish (a byte count from the
-    shapes), where a round changes a few hundred rows.
+    it, and such a write would change every retained epoch. The JAX ring
+    copies all five fields of every published state to the host and diffs
+    them whole: at V = 69,632 that is 69,632 x 2,176 x 4 B = 606 MB of
+    ``adj_packed`` per publish (a byte count from the shapes), where a
+    round changes a few hundred rows.
   * **``state_at`` rebuilds both mirrors without a [V, V] transient.** It
     folds the newer records' patches on the host into one patch per row
     (XOR is associative, so a row touched by several records gets the XOR
@@ -44,10 +56,9 @@ where the work runs, because the states live on the card:
     ``epoch_of_versions`` only (ecnt, vver), on the host, as JAX does.
 
 A mesh-sharded state (``core.partition.ShardedGraphState``) is held the
-same way, its version stamps covering every row block: ``push`` diffs it
-row block by row block against the previous state's same rows, with no
-gathered [V, W] copy, and ``state_at`` returns the dense ``GraphState``,
-as the JAX ring does.
+same way, its version stamps covering every row block: ``push`` gathers
+its candidate rows block by block, with no gathered [V, W] copy, and
+``state_at`` returns the dense ``GraphState``, as the JAX ring does.
 
 Capacity growth is a retention barrier: a ``grow`` changes every row's
 shape, so the ring resets at the grown epoch and earlier epochs report
@@ -62,9 +73,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.distributed import _on
-from repro_torch.core.graph import (WORD_BITS, GraphState,
+from repro_torch.core.graph import (EMPTY_KEY, WORD_BITS, GraphState,
                                     pack_transpose_blocks, resolve_device,
-                                    wrap_int32)
+                                    unpack_bits, wrap_int32)
 from repro_torch.obs import trace as _trace
 from repro_torch.obs.metrics import global_registry as _obs_registry
 
@@ -86,13 +97,13 @@ def _stamp(state) -> tuple[int, ...]:
     return tuple(t._version for t in _tensors(state))
 
 
-def _row_blocks(state) -> list:
-    """(first row, int32[R, W] block) of a state's ``adj_packed``, in row
+def _row_blocks(state, field: str = "adj_packed") -> list:
+    """(first row, int32[R, W] block) of a state's mirror ``field``, in row
     order: one block for a dense state, S for a sharded one."""
     if isinstance(state, GraphState):
-        return [(0, state.adj_packed)]
+        return [(0, getattr(state, field))]
     per = state.rows_per_shard
-    return [(s * per, b) for s, b in enumerate(state.adj_packed)]
+    return [(s * per, b) for s, b in enumerate(getattr(state, field))]
 
 
 def _rows_of(state, lo: int, hi: int, dev) -> torch.Tensor:
@@ -106,16 +117,44 @@ def _rows_of(state, lo: int, hi: int, dev) -> torch.Tensor:
     return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
 
 
-def _take_rows(state, rows: torch.Tensor) -> torch.Tensor:
-    """``adj_packed[rows]`` (rows ascending) on the state's device,
+def _take_rows(state, rows: torch.Tensor,
+               field: str = "adj_packed") -> torch.Tensor:
+    """``field[rows]`` (rows ascending) of a mirror on the state's device,
     gathered block by block from a sharded state."""
     if isinstance(state, GraphState):
-        return state.adj_packed[rows]
+        return getattr(state, field)[rows]
     out = []
-    for b0, blk in _row_blocks(state):
+    for b0, blk in _row_blocks(state, field):
         sel = rows[(rows >= b0) & (rows < b0 + blk.shape[0])] - b0
         out.append(_on(blk[_on(sel, blk.device)], state.device))
     return torch.cat(out)
+
+
+def _or_rows(x: torch.Tensor) -> torch.Tensor:
+    """The bitwise OR of the rows of int32[n, W] (n >= 1), by halving."""
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        y = x[:h] | x[h:2 * h]
+        if x.shape[0] % 2:
+            y[0] |= x[-1]
+        x = y
+    return x[0]
+
+
+def _scrubbed_sources(prev, state) -> torch.Tensor:
+    """bool[V]: the rows with an arc, in ``prev``, into a slot that an
+    AddVertex allocated on the way to ``state``. Only a slot holding
+    ``EMPTY_KEY`` is allocated, every allocation bumps its ``vver``, and
+    its scrub clears that slot's column of every row with no counter of
+    theirs moving: by the transpose invariant those rows are the set bits
+    of the slots' in-mirror rows. The gather is one row an allocation."""
+    slots = torch.nonzero((prev.vkey == EMPTY_KEY)
+                          & (prev.vver != state.vver)).flatten()
+    if slots.numel() == 0:
+        return torch.zeros((state.capacity,), dtype=torch.bool,
+                           device=state.device)
+    word = _or_rows(_take_rows(prev, slots, "adj_in_packed"))
+    return unpack_bits(word, state.capacity)
 
 
 def _dense_fields(state) -> list:
@@ -262,10 +301,11 @@ class EpochRing:
 
     def push(self, epoch: int, state: GraphState) -> None:
         """Record the transition newest -> ``epoch`` (consecutive publishes):
-        the changed rows are found on the device, and only their patches
-        and the version vector cross to the host, in one copy. Traced as
-        ``ring.push`` (``rows`` changed, ``bytes`` copied to the host; 0
-        and 0 where a capacity change resets the ring)."""
+        the changed rows are found on the device from the version counters
+        and the scrubbed slots' in-rows (module docstring), and only their
+        patches and the version vector cross to the host, in one copy.
+        Traced as ``ring.push`` (``rows`` changed, ``bytes`` copied to the
+        host; 0 and 0 where a capacity change resets the ring)."""
         with _trace.span("ring.push", epoch=int(epoch)) as sp:
             prev = self._newest_state()
             if prev is None or state.capacity != prev.capacity:
@@ -276,22 +316,20 @@ class EpochRing:
                 raise ValueError(
                     f"non-consecutive publish: {self._newest} -> {epoch}")
             v, w = state.capacity, state.words
-            dev = state.device
-            # row block by row block against the previous state's same rows
-            # (a sharded state is never gathered)
-            changed = torch.zeros((v,), dtype=torch.bool, device=dev)
-            for lo, blk in _row_blocks(state):
-                hi = lo + blk.shape[0]
-                diff = (_rows_of(prev, lo, hi, blk.device) != blk).any(1)
-                changed[lo:hi] = _on(diff, dev)
+            # candidates: a counter moved, or a scrub may have cleared an
+            # arc (module docstring); keep those whose bytes differ
+            changed = torch.zeros((v,), dtype=torch.bool, device=state.device)
             for name in _SCALARS:
                 changed |= getattr(prev, name) != getattr(state, name)
-            rows = torch.nonzero(changed).flatten()
+            cand = torch.nonzero(
+                changed | _scrubbed_sources(prev, state)).flatten()
+            xor = _take_rows(prev, cand) ^ _take_rows(state, cand)
+            keep = torch.nonzero(changed[cand] | (xor != 0).any(1)).flatten()
+            rows = cand[keep]
             k = rows.numel()
             patch = [(getattr(prev, name)[rows] ^ getattr(state, name)[rows])
                      .to(torch.int32).flatten() for name in _SCALARS]
-            patch.append((_take_rows(prev, rows) ^ _take_rows(state, rows))
-                         .flatten())
+            patch.append(xor[keep].flatten())
             host = self._to_host(torch.cat(
                 [torch.stack([state.ecnt, state.vver], -1).flatten(),
                  rows.to(torch.int32)] + patch))
